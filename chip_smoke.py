@@ -3,27 +3,40 @@
 GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
-CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs five phases,
+CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs six phases,
 each printing its results:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
 2. build: build time, what ``ptxas -v`` reports (registers, spills) and
    each kernel's SASS opcode mix (``cuobjdump -sass``);
-3. every kernel against its plain PyTorch version on the card, bit for
-   bit, and against ``hashlib``;
+3. every kernel against its plain PyTorch version on the card: the
+   hashing kernels bit for bit (and against ``hashlib``, or the CPU gear
+   baseline at positions >= 31, and a sharded gear plan reassembled),
+   flash attention within the JAX package's tolerances;
 4. the main path, the SAI content-addressable write/read path: a series
    of four 256 MiB checkpoint images written with ``write_async`` and read
    back with verification, under fixed 1 MiB blocks (``ca='fixed'``),
    sliding-window-MD5 content-defined chunking with the SAI's defaults
-   (``ca='cdc'``, window 48, stride 4) and the same at stride 1 (the
-   paper's byte-granular windows), with the kernels' launch counts over
-   exactly that run and each configuration's similarities held to their
-   known values; sliding hashes of one image against ``hashlib`` at both
-   strides; then a refetch of a corrupted replica and a durable store
-   reopened and read;
-5. each kernel at the main path's shapes (the sliding kernel at both of
-   its strides): its time with CUDA events beside its bound, and its
-   plain version's time and result on the same inputs (bit for bit).
+   (``ca='cdc'``, window 48, stride 4), the same at stride 1 (the paper's
+   byte-granular windows) and gear-hash CDC at the SAI's defaults
+   (``ca='cdc-gear'``), with the kernels' launch counts over exactly that
+   run and each configuration's similarities held to their known values;
+   sliding hashes of one image against ``hashlib`` at both strides and
+   gear chunk boundaries of one image against the CPU baseline; then a
+   refetch of a corrupted replica and a durable store reopened and read;
+5. the checkpoint path: ``CACheckpointer`` saving two decoder layers of
+   llama3-8b's published widths in bf16 from the card through
+   ``ca='cdc-gear'``, three steps (all new, a frozen first layer, an
+   identical re-save) with their dedup ratios checked, every step
+   restored after a storage-node failure and compared tensor for tensor,
+   and an ``async_save`` raced by an in-place update;
+6. each kernel at its path's shapes (the sliding kernel at both of its
+   strides, gear on one image and on phase 4's largest launch, flash
+   attention through its own entry point at llama3-8b's widths and
+   context in bf16 and f32): its time with CUDA events beside its bound,
+   its plain version's time and result on the same inputs, and for
+   flash attention PyTorch's ``scaled_dot_product_attention`` timed
+   beside it.
 
 Any failed check raises, so the script exits non-zero.  The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -50,6 +63,19 @@ N_IMAGES = 4
 IMAGE_BYTES = 256 * MiB
 DURABLE_BYTES = 64 * MiB
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+# dense peaks, H100 SXM data sheet: bf16 on the tensor cores, and f32 on
+# the CUDA cores (outside the tensor cores), which the flash kernel's f32
+# FMAs use in both dtypes
+BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
+# integer instructions per byte the gear hash needs at the least: mix32
+# of b + 1 (one add, three xor-shift pairs, two multiplies) and one
+# shift-add of the recurrence h = (h << 1) + g
+GEAR_OPS_PER_BYTE = 10
+# llama3-8b's published widths (src/repro/configs/llama3_8b.py)
+LLAMA_D_MODEL, LLAMA_HEADS, LLAMA_KV_HEADS, LLAMA_HEAD_DIM = 4096, 32, 8, 128
+LLAMA_D_FF, LLAMA_CONTEXT = 14336, 8192
+CKPT_LAYERS = 2                # of the model's 32, to keep within time
 # 32-bit integer results per clock per SM for compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput): 64 for
 # add, logical op and shift, which run on the ALU pipe, and 64 for
@@ -69,15 +95,22 @@ FMA_OPCODES = ("IMAD",)
 # (the sliding kernel at the main path's window of 12 words)
 SASS_FUNCTIONS = {"md5_direct": ("md5_direct_kernel",),
                   "sliding_md5": ("sliding_md5_kernelILi12E",
-                                  "sliding_md5_kernel<12>")}
+                                  "sliding_md5_kernel<12>"),
+                  "gear": ("gear_kernel",),
+                  "flash_attn f32 hd128": ("flash_fwd_kernelIfLi128E",
+                                           "flash_fwd_kernel<float, 128>"),
+                  "flash_attn bf16 hd128": (
+                      "flash_fwd_kernelI13__nv_bfloat16Li128E",
+                      "flash_fwd_kernel<__nv_bfloat16, 128>")}
 # WriteStats.similarity of the four versions of checkpoint_series(seed=0)
 # per configuration, to 4 places.  At stride 4 a window is hashed only at
 # offsets 0 mod 4, so an insert of k bytes with k % 4 != 0 moves the
 # content off the grid and chunking does not resynchronise after it;
-# byte-granular windows (stride 1) do
+# byte-granular windows (stride 1) and the gear hash (every byte) do
 SIMILARITY = {"fixed": [0.0, 0.7773, 0.4141, 0.8086],
               "cdc": [0.0, 0.7582, 0.4124, 0.7732],
-              "cdc-stride1": [0.0, 0.8678, 0.8533, 0.8486]}
+              "cdc-stride1": [0.0, 0.8678, 0.8533, 0.8486],
+              "cdc-gear": [0.0, 0.8309, 0.8592, 0.8213]}
 
 
 def ops_per_compression(const_words: int = 0, final_adds: int = 4) -> int:
@@ -139,6 +172,28 @@ def max_abs_err(a, b) -> int:
     return int(diff.abs().max()) if diff.numel() else 0
 
 
+# (atol, rtol) of a flash output against the plain version's f32 result
+# on the same inputs.  f32: the JAX package's 2e-5, for sums taken in
+# another order.  bf16: the kernel keeps scores, P and the accumulator in
+# f32 (the same template as f32), so it differs from the plain result by
+# that f32 error plus the final rounding to bf16, at most half an ulp:
+# 2**-8 of the value.  So rtol 4e-3 (2**-8 + 2e-5) and atol 3e-5.
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-5, 4e-3)}
+
+
+def flash_close(got, want, what: str) -> float:
+    """Check a flash output against the plain version's f32 result with
+    the tolerance of ``FLASH_TOL`` for its dtype; return the largest
+    absolute error."""
+    import torch
+    atol, rtol = FLASH_TOL[str(got.dtype).split(".")[-1]]
+    g = got.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: finite output")
+    check(torch.allclose(g, want, atol=atol, rtol=rtol),
+          f"{what}: within atol {atol} + rtol {rtol} of the plain version")
+    return float((g - want).abs().max())
+
+
 def time_cuda(fn, flush, repeats: int = 5, warmup: int = 1) -> float:
     """Median ms of ``fn`` between CUDA events, with the L2 cache flushed
     (a 256 MiB write) before every launch."""
@@ -183,6 +238,9 @@ def phase_env(torch):
           f"IMAD on the FMA pipe), of which ALU pipe "
           f"{sm_clocks * ALU_LANES_PER_SM / 1e12:.2f} TOP/s; HBM "
           f"{HBM_BYTES_PER_S / 1e12} TB/s (data sheet)")
+    print(f"float peaks (data sheet, dense): f32 outside the tensor cores "
+          f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s, bf16 on the tensor cores "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s")
     return smi, sm_clocks
 
 
@@ -233,9 +291,10 @@ def phase_build():
 
 def phase_kernels(torch, np, dev):
     print("== phase 3: kernels against their plain versions")
-    from repro_torch.kernels import md5, ops, sliding_md5
+    from repro_torch.core.sai import _cpu_gear
+    from repro_torch.kernels import flash_attn, gear, md5, ops, sliding_md5
     rng = np.random.default_rng(1)
-    errs = {"md5_direct": 0, "sliding_md5": 0}
+    errs = {"md5_direct": 0, "sliding_md5": 0, "gear": 0, "flash_attn": 0.0}
     # md5: ragged lens incl. lens == W, one word and zero words; B not a
     # multiple of 32; rows up to 64 KiB
     for B, W in [(45, 16384), (33, 1), (64, 257), (1, 4096)]:
@@ -283,12 +342,58 @@ def phase_kernels(torch, np, dev):
                                     device=dev)
     check(short.shape == (0,), "input shorter than a window hashes empty")
     print("sliding_md5 input shorter than one window: empty")
+    # gear: five ragged rows in one launch, zero-padded at the end —
+    # lengths under one window and not multiples of 4, and 16 MiB + 3
+    lens = [1, 31, 32, 33, 16 * MiB + 3]
+    rows = np.zeros((len(lens), max(lens)), np.uint8)
+    for i, n in enumerate(lens):
+        rows[i, :n] = rng.integers(0, 256, n, dtype=np.uint8)
+    data = torch.from_numpy(rows).to(dev)
+    got = gear.gear_bytes(data)
+    torch.cuda.synchronize()
+    want = gear.gear_plain(data)
+    check(words_equal(got, want), f"gear kernel == plain, rows {lens}")
+    errs["gear"] = max_abs_err(got, want)
+    host = got.cpu().numpy()
+    for i, n in enumerate(lens):
+        row = rows[i, :n].tobytes()
+        alone = ops.gear_hash(row, device=dev)
+        check(np.array_equal(host[i, :n], alone),
+              f"gear row of {n} B alone == in the padded launch")
+        check(np.array_equal(alone[31:], _cpu_gear(row)[31:]),
+              f"gear == _cpu_gear at positions >= 31, row of {n} B")
+    print(f"gear rows of {lens} B in one launch: bit-exact vs plain, each "
+          f"row equal alone, and equal to _cpu_gear at positions >= 31")
+    plan = ops.stream_shard_plan(lens[-1], "gear", 3)
+    check(plan is not None and len(plan) == 3, "gear shard plan of 3")
+    parts = [ops.gear_hash(rows[-1, a:b].tobytes(), device=dev)[d:]
+             for a, b, d in plan]
+    check(np.array_equal(np.concatenate(parts), host[-1]),
+          "sharded gear plan reassembles the unsharded output")
+    print(f"gear shard plan {plan}: reassembled == unsharded")
+    # flash: hd 64 and 128, S == Sk and both Sk != S, in f32 and bf16;
+    # the plain version runs on the same (rounded) inputs
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for BH, S, Sk, hd in [(4, 1024, 1024, 64), (4, 1024, 1024, 128),
+                          (4, 512, 1536, 128), (4, 1536, 512, 64)]:
+        qkv = [torch.randn((BH, n, hd), generator=gen, device=dev)
+               for n in (S, Sk, Sk)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dtype) for x in qkv)
+            got = flash_attn.flash_attention_fwd(q, k, v)
+            torch.cuda.synchronize()
+            err = flash_close(got, flash_attn.flash_plain(q, k, v),
+                              f"flash {dtype} BH {BH} S {S} Sk {Sk} hd {hd}")
+            errs["flash_attn"] = max(errs["flash_attn"], err)
+            print(f"flash_attn {str(dtype)[6:]} BH {BH} S {S} Sk {Sk} hd "
+                  f"{hd}: max abs err {err:.3g} vs plain")
     return errs
 
 
 # name -> SAIConfig overrides of the main path's configurations
 CONFIGS = {"fixed": {"ca": "fixed"}, "cdc": {"ca": "cdc"},
-           "cdc-stride1": {"ca": "cdc", "stride": 1}}
+           "cdc-stride1": {"ca": "cdc", "stride": 1},
+           "cdc-gear": {"ca": "cdc-gear"}}
 
 
 def write_read(torch, np, eng, series, ca: str):
@@ -337,35 +442,65 @@ def write_read(torch, np, eng, series, ca: str):
 
 def phase_main_path(torch, np, series):
     print("== phase 4: main path (SAI write/read through CrystalGPU)")
-    from repro_torch.core import CrystalGPU
-    from repro_torch.kernels import md5, sliding_md5
+    from repro_torch.core import SAI, CrystalGPU, SAIConfig
+    from repro_torch.kernels import gear, md5, sliding_md5
     eng = CrystalGPU()
     check([str(d) for d in eng.devices] == ["cuda:0"],
           f"engine on cuda:0, got {eng.devices}")
-    counters = (md5.LAUNCHES, sliding_md5.LAUNCHES)
+    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+                "gear": gear.LAUNCHES}
     kept = {}
     try:
-        for c in counters:
+        for c in counters.values():
             c.reset()
         per = {}
         for ca in CONFIGS:
-            before = [c.value for c in counters]
+            before = {n: c.value for n, c in counters.items()}
             kept[ca] = write_read(torch, np, eng, series, ca)
-            per[ca] = [c.value - b for c, b in zip(counters, before)]
-            print(f"{ca}: kernel launches md5_direct {per[ca][0]}, "
-                  f"sliding_md5 {per[ca][1]}")
-        launches = {c.name: c.value for c in counters}
+            per[ca] = {n: c.value - before[n] for n, c in counters.items()}
+            print(f"{ca}: kernel launches {per[ca]}")
+        launches = {n: c.value for n, c in counters.items()}
+        largest = gear.LAUNCHES.largest_shape
+        largest_bytes = gear.LAUNCHES.largest_bytes
         print(f"main path kernel launches: {launches}")
-        check(launches["md5"] > 0 and launches["sliding_md5"] > 0,
-              "both kernels launched on the main path")
-        check(per["fixed"][1] == 0 and per["cdc"][1] > 0
-              and per["cdc-stride1"][1] > 0,
+        print(f"largest gear launch: {largest[0]} rows x {largest[1]} B "
+              f"({largest_bytes} B in, {4 * largest_bytes} B of hashes "
+              f"out); fusion cap {eng.max_fused_bytes} B")
+        check(all(n > 0 for n in launches.values()),
+              "every hashing kernel launched on the main path")
+        check(per["fixed"]["sliding_md5"] == 0
+              and per["cdc"]["sliding_md5"] > 0
+              and per["cdc-stride1"]["sliding_md5"] > 0
+              and per["cdc-gear"]["sliding_md5"] == 0,
               "sliding kernel runs under ca='cdc' only")
-        fixed, cdc1 = kept["fixed"][3], kept["cdc-stride1"][3]
-        check(all(c > f for c, f in zip(cdc1["similarity"][1:],
-                                        fixed["similarity"][1:])),
-              "CDC (stride 1) similarity above fixed-block similarity, "
-              "versions 2-4")
+        check(per["cdc-gear"]["gear"] > 0 and per["cdc-gear"]["md5"] > 0
+              and all(per[ca]["gear"] == 0 for ca in CONFIGS
+                      if ca != "cdc-gear"),
+              "gear kernel runs under ca='cdc-gear' only, md5 beside it")
+        check(largest[0] == 1 or largest_bytes <= eng.max_fused_bytes,
+              "the fusion byte cap bounds fused gear launches")
+        fixed = kept["fixed"][3]["similarity"]
+        for ca in ("cdc-stride1", "cdc-gear"):
+            sim = kept[ca][3]["similarity"]
+            check(all(c > f for c, f in zip(sim[1:], fixed[1:])),
+                  f"{ca} similarity {sim} above fixed-block similarity "
+                  f"{fixed}, versions 2-4")
+
+        # gear chunk boundaries of one whole image: engine == CPU baseline
+        gsai, gmgr = kept["cdc-gear"][0], kept["cdc-gear"][1]
+        cpu_sai = SAI(gmgr, SAIConfig(ca="cdc-gear", hasher="cpu"),
+                      crystal=eng)
+        t0 = time.perf_counter()
+        on_card = gsai._boundaries(series[1])
+        t1 = time.perf_counter()
+        on_cpu = cpu_sai._boundaries(series[1])
+        t2 = time.perf_counter()
+        cpu_sai.close()
+        check(on_card == on_cpu, "gear chunk boundaries of image 2 from "
+              "the engine == from _cpu_gear")
+        print(f"gear chunk boundaries of image 2: {len(on_card)} chunks "
+              f"over {len(series[1]) // MiB} MiB, engine ({t1 - t0:.2f} s) "
+              f"== _cpu_gear ({t2 - t1:.2f} s)")
 
         # sliding hashes of one image against hashlib at sampled offsets,
         # at both strides of the main path
@@ -409,7 +544,7 @@ def phase_main_path(torch, np, series):
         phase_durable(eng, series[0][:DURABLE_BYTES])
     finally:
         eng.shutdown()
-    return launches, kept
+    return launches, largest
 
 
 def phase_durable(eng, img: bytes):
@@ -433,10 +568,115 @@ def phase_durable(eng, img: bytes):
           f"{report.replayed} records replayed), verified read matches")
 
 
-def phase_times(torch, np, dev, sm_clocks, pipes, errs):
-    print("== phase 5: kernels at the main path's shapes: times (CUDA "
+def llama_layer(torch, dev, gen):
+    """One decoder layer's weights at llama3-8b's published widths, bf16
+    on the card ([out, in] as ``nn.Linear`` keeps them)."""
+    d, kv, ff = LLAMA_D_MODEL, LLAMA_KV_HEADS * LLAMA_HEAD_DIM, LLAMA_D_FF
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02) \
+            .to(torch.bfloat16)
+    return {"attn_norm": torch.ones(d, dtype=torch.bfloat16, device=dev),
+            "wq": w(d, d), "wk": w(kv, d), "wv": w(kv, d), "wo": w(d, d),
+            "mlp_norm": torch.ones(d, dtype=torch.bfloat16, device=dev),
+            "w_gate": w(ff, d), "w_up": w(ff, d), "w_down": w(d, ff)}
+
+
+def phase_checkpoint(torch, np, dev):
+    print("== phase 5: checkpoint path (CACheckpointer through "
+          "ca='cdc-gear' on CrystalGPU)")
+    from repro_torch.core import SAI, CrystalGPU, SAIConfig, make_store
+    from repro_torch.kernels import gear, md5, sliding_md5
+    from repro_torch.train import CACheckpointer
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = {"layers": {str(i): llama_layer(torch, dev, gen)
+                         for i in range(CKPT_LAYERS)}}
+
+    def flat():
+        return {f"{i}/{n}": t for i, layer in params["layers"].items()
+                for n, t in layer.items()}
+
+    def snapshot():
+        return {k: t.clone() for k, t in flat().items()}
+
+    def equal(state, snap):
+        got = {f"{i}/{n}": t for i, layer in state["params"]["layers"]
+               .items() for n, t in layer.items()}
+        return got.keys() == snap.keys() and all(
+            got[k].dtype == torch.bfloat16 and got[k].device.type == "cpu"
+            and torch.equal(got[k].to(dev), snap[k]) for k in snap)
+
+    n_params = sum(t.numel() for t in flat().values())
+    nbytes = sum(t.nbytes for t in flat().values())
+    print(f"state: {CKPT_LAYERS} of llama3-8b's 32 decoder layers (d_model "
+          f"{LLAMA_D_MODEL}, {LLAMA_HEADS} heads, {LLAMA_KV_HEADS} kv heads "
+          f"of {LLAMA_HEAD_DIM}, d_ff {LLAMA_D_FF}), {n_params} parameters, "
+          f"{nbytes} B in bf16 on {dev}")
+    eng = CrystalGPU()
+    mgr, _ = make_store(4, replication=2)
+    sai = SAI(mgr, SAIConfig(ca="cdc-gear"), crystal=eng)
+    ckpt = CACheckpointer(sai)
+    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+                "gear": gear.LAUNCHES}
+    try:
+        for c in counters.values():
+            c.reset()
+        snaps, recs = [], []
+        for step in range(3):
+            if step == 1:           # a frozen trunk: only layer 1 changes
+                for t in params["layers"]["1"].values():
+                    t.copy_(torch.randn(t.shape, generator=gen, device=dev)
+                            .to(t.dtype))
+            snaps.append(snapshot())
+            torch.cuda.synchronize()
+            recs.append(ckpt.save(step, params))
+        for r in recs:
+            rate = r["total_bytes"] / r["wall_s"] / 1e6
+            print(f"save step {r['step']}: {rate:.1f} MB/s, dedup "
+                  f"{r['dedup_ratio']:.4f}, new {r['new_bytes']} B")
+        check(recs[0]["dedup_ratio"] < 0.05, "step 0 is all new")
+        check(recs[1]["dedup_ratio"] >= 0.45,
+              f"step 1 (layer 0 unchanged) dedups >= 0.45: "
+              f"{recs[1]['dedup_ratio']:.4f}")
+        check(recs[2]["new_bytes"] == 0, "step 2 (identical) stores nothing")
+        moved = mgr.handle_node_failure(0)
+        print(f"storage node 0 failed: {moved} blocks re-replicated")
+        for step in range(3):
+            t0 = time.perf_counter()
+            got_step, state, _ = ckpt.restore(version=step)
+            wall = time.perf_counter() - t0
+            check(got_step == step and equal(state, snaps[step]),
+                  f"step {step} restores tensor-equal after node failure")
+            print(f"restore step {step} (verified): {nbytes / wall / 1e6:.1f} "
+                  f"MB/s, every tensor equal")
+            del state
+        before = snapshot()
+        ckpt.async_save(3, params)
+        for t in flat().values():   # the next training step, in place
+            t.add_(1)
+        ckpt.wait()
+        got_step, state, _ = ckpt.restore(version=3)
+        check(got_step == 3 and equal(state, before),
+              "async_save stored the state as it was when called")
+        print("async_save then an in-place update: the restore equals the "
+              "state at the call")
+        launches = {n: c.value for n, c in counters.items()}
+        print(f"checkpoint path kernel launches: {launches}; engine "
+              f"{eng.snapshot_stats()['launches']} launches / "
+              f"{eng.snapshot_stats()['jobs']} jobs")
+        check(launches["gear"] > 0 and launches["md5"] > 0
+              and launches["sliding_md5"] == 0,
+              "the checkpoint path runs the gear and md5 kernels")
+    finally:
+        sai.close()
+        eng.shutdown()
+    return launches
+
+
+def phase_times(torch, np, dev, sm_clocks, pipes, errs, gear_largest):
+    print("== phase 6: kernels at their paths' shapes: times (CUDA "
           "events, L2 flushed) and checks against the plain versions")
-    from repro_torch.kernels import md5, sliding_md5
+    from repro_torch.kernels import flash_attn, gear, md5, sliding_md5
     flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -490,7 +730,8 @@ def phase_times(torch, np, dev, sm_clocks, pipes, errs):
                        B * n * 4 + B * 4 + B * 16)
     out["md5_direct"] = {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"{B} messages x {n} words in [{B}, {W}] uint32 rows"}
+        "shape": f"{B} messages x {n} words in [{B}, {W}] uint32 rows",
+        "library_ms": None}
     print(f"md5_direct: {ms:.3f} ms at {out['md5_direct']['shape']}; "
           f"bound {b_ms:.4f} ms ({b_by}, {ops_per_compression()} integer "
           f"instructions per compression); plain {plain_ms:.1f} ms, "
@@ -521,8 +762,91 @@ def phase_times(torch, np, dev, sm_clocks, pipes, errs):
         if stride == 4:
             out["sliding_md5"] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "shape": shape}
-    return out
+                "bound_by": b_by, "shape": shape, "library_ms": None}
+    del swords
+    # gear: one 256 MiB image, and phase 4's largest launch
+    for label, shape in (("one image", (1, IMAGE_BYTES)),
+                         ("phase 4's largest launch", gear_largest)):
+        if label != "one image" and tuple(shape) == (1, IMAGE_BYTES):
+            print(f"gear: phase 4's largest launch is {tuple(shape)}, the "
+                  f"shape timed above")
+            continue
+        x = torch.randint(0, 256, tuple(shape), dtype=torch.uint8,
+                          device=dev, generator=gen)
+        ms = time_cuda(lambda: gear.gear_bytes(x), flush)
+        got = gear.gear_bytes(x)
+        plain_ms = against_plain("gear", got, lambda: gear.gear_plain(x))
+        del got
+        n = x.numel()
+        t_bytes = 5 * n / HBM_BYTES_PER_S
+        t_ops = GEAR_OPS_PER_BYTE * n / (INT_LANES_PER_SM * sm_clocks)
+        b_ms = max(t_bytes, t_ops) * 1e3
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        desc = f"[{shape[0]}, {shape[1]}] uint8 ({label})"
+        print(f"gear: {ms:.3f} ms at {desc}; bound {b_ms:.4f} ms ({b_by}: "
+              f"{5 * n} B at 3.35 TB/s, {GEAR_OPS_PER_BYTE} integer "
+              f"instructions per byte {t_ops * 1e3:.4f} ms); plain "
+              f"{plain_ms:.1f} ms, bit-exact; library: none (no PyTorch "
+              f"call computes the gear hash)")
+        if label == "one image":
+            out["gear"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "shape": desc,
+                           "library_ms": None}
+        del x
+    # flash attention at llama3-8b's widths and context: batch 1 x 32
+    # query heads, each of the 8 kv heads broadcast to its 4 query heads
+    BH, S, hd = LLAMA_HEADS, LLAMA_CONTEXT, LLAMA_HEAD_DIM
+    group = LLAMA_HEADS // LLAMA_KV_HEADS
+    q32 = torch.randn((BH, S, hd), generator=gen, device=dev)
+    k32, v32 = (torch.randn((LLAMA_KV_HEADS, S, hd), generator=gen,
+                            device=dev).repeat_interleave(group, 0)
+                for _ in range(2))
+    flops = 4 * BH * hd * sum(min(i + 1, S) for i in range(S))
+    flash_launches = None
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        if flash_launches is None:          # the entry point's own path
+            flash_attn.LAUNCHES.reset()
+            first = flash_attn.flash_attention_fwd(q, k, v)
+            torch.cuda.synchronize()
+            flash_launches = flash_attn.LAUNCHES.value
+            check(flash_launches == 1 and first.dtype == dtype
+                  and first.shape == q.shape, "flash_attention_fwd "
+                  "launched its kernel once and kept shape and dtype")
+            del first
+        ms = time_cuda(lambda: flash_attn.flash_attention_fwd(q, k, v),
+                       flush)
+        got = flash_attn.flash_attention_fwd(q, k, v)
+        want = {}
+        plain_ms = time_cuda(
+            lambda: want.setdefault("v", flash_attn.flash_plain(q, k, v)),
+            flush, repeats=1, warmup=0)
+        err = flash_close(got, want.pop("v"),
+                          f"flash {dtype} at BH {BH} S {S} hd {hd}")
+        errs["flash_attn"] = max(errs["flash_attn"], err)
+        del got
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        q4, k4, v4 = (t.view(1, BH, S, hd) for t in (q, k, v))
+        lib_ms = time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True), flush)
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+            else FP32_FLOP_PER_S
+        nbytes = 4 * q.nbytes
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+        b_ms = max(t_ops, t_bytes) * 1e3
+        b_by = "operations" if t_ops >= t_bytes else "bytes"
+        name = str(dtype).split(".")[-1]
+        desc = f"q, k, v [{BH}, {S}, {hd}] {name}, causal"
+        print(f"flash_attn: {ms:.3f} ms at {desc}; bound {b_ms:.4f} ms "
+              f"({b_by}: {flops:.4g} FLOP at {peak / 1e12:.0f} TFLOP/s, "
+              f"Q+K+V+O {nbytes} B); plain {plain_ms:.1f} ms, max abs err "
+              f"{err:.3g}; library scaled_dot_product_attention "
+              f"{lib_ms:.3f} ms")
+        if dtype == torch.bfloat16:
+            out["flash_attn"] = {"ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by,
+                                 "shape": desc, "library_ms": lib_ms}
+        del q, k, v, q4, k4, v4
+    return out, flash_launches
 
 
 def main() -> int:
@@ -541,21 +865,27 @@ def main() -> int:
     print(f"checkpoint series: {N_IMAGES} x {IMAGE_BYTES // MiB} MiB "
           f"(seed 0, change_frac 0.15) made in "
           f"{time.perf_counter() - t0:.1f} s")
-    launches, _ = phase_main_path(torch, np, series)
+    launches, gear_largest = phase_main_path(torch, np, series)
     del series
-    times = phase_times(torch, np, dev, sm_clocks, pipes, errs)
+    phase_checkpoint(torch, np, dev)
+    times, launches["flash_attn"] = phase_times(torch, np, dev, sm_clocks,
+                                                pipes, errs, gear_largest)
     kernels = []
     for name, counter, source, replaces in [
             ("md5_direct", "md5", "src/repro_torch/kernels/csrc/md5.cu",
              "src/repro/kernels/md5.py:84"),
             ("sliding_md5", "sliding_md5",
              "src/repro_torch/kernels/csrc/sliding_md5.cu",
-             "src/repro/kernels/sliding_md5.py:56")]:
+             "src/repro/kernels/sliding_md5.py:56"),
+            ("gear", "gear", "src/repro_torch/kernels/csrc/gear.cu",
+             "src/repro/kernels/gear.py:134"),
+            ("flash_attn", "flash_attn",
+             "src/repro_torch/kernels/csrc/flash_attn.cu",
+             "src/repro/kernels/flash_attn.py:74")]:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": launches[counter],
-                        "max_abs_err": errs[name], **times[name],
-                        "library_ms": None})
+                        "max_abs_err": errs[name], **times[name]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -17,9 +17,10 @@ offload pay off:
                        so per-launch overhead is amortized over the whole
                        burst.  This covers every job kind: ``direct``
                        rows stack into one [B, W] batch, and bursts of
-                       same-config ``sliding`` stream jobs stack into one
-                       padded [B, L] multi-row launch of
-                       ``sliding_md5.sliding_md5_words``.
+                       same-config ``sliding`` / ``gear`` stream jobs
+                       stack into one padded [B, L] multi-row launch of
+                       ``sliding_md5.sliding_md5_words`` or
+                       ``gear.gear_bytes``.
 
 Engine mesh (this module's multi-device structure):
 
@@ -42,7 +43,8 @@ Engine mesh (this module's multi-device structure):
                per-device sub-launches via the pure planning helpers in
                ``ops`` (``shard_row_ranges`` for direct row ranges,
                ``stream_shard_plan`` for stride-aligned sliding
-               slices) and the child digests
+               slices and 32-byte-overlap gear slices) and the child
+               digests
                are reassembled in submission order into the parent
                job's result — one whale checkpoint leaf no longer
                serializes on a single manager while other devices idle.
@@ -96,7 +98,12 @@ Job normal forms
               them).
   'sliding' : data = flat uint8 buffer, meta {'window', 'stride'};
               result [n_offsets] uint32 window hashes.
-  'gear'    : not yet ported; ``submit`` raises NotImplementedError.
+  'gear'    : data = flat uint8 buffer, meta {'version'} (1, 2 or 3,
+              default 1: the JAX package's three kernel bodies, one
+              function; here one kernel serves all three, and an unknown
+              version fails the job); result [len] uint32 rolling hash.
+              Stream rows are zero-padded at the end, and the gear hash
+              is causal, so the padding changes no kept output.
 """
 from __future__ import annotations
 
@@ -112,7 +119,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import md5, ops, sliding_md5
+from repro_torch.kernels import gear, md5, ops, sliding_md5
 from repro_torch.obs import HeartbeatBoard
 from repro_torch.obs import metrics as metrics_mod
 
@@ -183,7 +190,7 @@ class LaneQueue:
 @dataclass(eq=False)                   # identity semantics: jobs hold
 class Job:                             # numpy fields, and the manager's
     # running-list membership/removal must never compare array contents
-    kind: str                          # 'direct' | 'sliding'
+    kind: str                          # 'direct' | 'sliding' | 'gear'
     data: Optional[np.ndarray] = None
     meta: Dict[str, Any] = field(default_factory=dict)
     callback: Optional[Callable] = None
@@ -254,7 +261,8 @@ def _normalize_direct(data: np.ndarray, meta: Dict[str, Any]):
 # decisions; the online EWMA regression of measured launch wall times
 # replaces them after two launches of a kind.
 _COST_DEFAULT = (1e-9, 1e-3)
-_COST_START = {kind: _COST_DEFAULT for kind in ("direct", "sliding")}
+_COST_START = {kind: _COST_DEFAULT
+               for kind in ("direct", "sliding", "gear")}
 
 
 class KernelCostModel:
@@ -497,7 +505,8 @@ class CrystalGPU:
                          load-aware dispatch score (see module docstring)
       coalesce:          fuse queued same-fuse-key jobs into one batch
                          launch — 'direct' with 'direct', 'sliding' with
-                         identical window/stride (stream jobs
+                         identical window/stride, 'gear' with the same
+                         version (stream jobs
                          additionally only fuse within the
                          same buffer-size octave class, so a tiny CDC
                          job never pads out to a huge neighbour)
@@ -630,10 +639,6 @@ class CrystalGPU:
             raise RuntimeError("CrystalGPU engine is shut down")
         if lane not in LANES:
             raise ValueError(f"unknown lane {lane!r}")
-        if kind == "gear":
-            raise NotImplementedError(
-                "gear hashing is not ported yet: it comes with the gear "
-                "CDC slice (ca='cdc-gear')")
         job = self._make_job(kind, np.asarray(data), meta or {},
                              callback, lane)
         plan = self._shard_plan(job)
@@ -660,14 +665,19 @@ class CrystalGPU:
             n, w = rows.shape
             job.n_rows = n
             job.staged_width = 1 << (max(w, 4) - 1).bit_length()
-        elif kind == "sliding":
+        elif kind in ("sliding", "gear"):
             # stream jobs fuse only within a buffer-size octave class:
             # rows pad to the batch max, so fusing a 4 KB CDC job with a
             # 64 MB one would hash ~16000x padding for the small job —
             # the class bound keeps fusion for genuinely similar bursts
             octave = self.policy.octave_class(job.data.size)
-            job.fuse_key = ("sliding", int(job.meta.get("window", 48)),
-                            int(job.meta.get("stride", 4)), octave)
+            if kind == "sliding":
+                job.fuse_key = ("sliding",
+                                int(job.meta.get("window", 48)),
+                                int(job.meta.get("stride", 4)), octave)
+            else:
+                job.fuse_key = ("gear", int(job.meta.get("version", 1)),
+                                octave)
             n_words = (max(job.data.size, 1) + 3) // 4
             job.staged_width = 4 << (max(n_words, 4) - 1).bit_length()
         else:
@@ -732,7 +742,7 @@ class CrystalGPU:
             k = min(k, job.n_rows)
             return [("rows", a, b, 0)
                     for a, b in ops.shard_row_ranges(job.n_rows, k)]
-        if job.kind == "sliding":
+        if job.kind in ("sliding", "gear"):
             plan = ops.stream_shard_plan(
                 int(job.data.size), job.kind, k,
                 window=int(job.meta.get("window", 48)),
@@ -880,8 +890,9 @@ class CrystalGPU:
         malloc-per-task).
 
         A reused buffer is not cleared: bytes past a row's length are
-        never part of a kept result (digests are length-bound, and a kept
-        window lies inside its job's bytes).  A slot returns to ``idle``
+        never part of a kept result (digests are length-bound, a kept
+        window lies inside its job's bytes, and a gear hash depends only
+        on the bytes at and before its position).  A slot returns to ``idle``
         only after its launch's output was pulled to the host, which
         synchronises the manager's stream after the copies that read the
         slot, so no later fill can overwrite a copy still in flight."""
@@ -894,6 +905,16 @@ class CrystalGPU:
             slot[key] = buf
         return buf
 
+    def _staging_view(self, slot: dict, role: str, shape,
+                      dtype: torch.dtype) -> torch.Tensor:
+        """``_staging`` for a shape that changes from launch to launch: a
+        view of the first ``prod(shape)`` elements of a flat buffer whose
+        size is bucketed to a power of two, so a few buffers serve every
+        shape and a copy moves only the shape's elements."""
+        n = int(np.prod(shape))
+        cap = 1 << (max(n, 1) - 1).bit_length() if self.buffer_reuse else n
+        return self._staging(slot, role, (cap,), dtype)[:n].view(shape)
+
     def _note_picked(self, dev: _DeviceState, job: Job):
         with self._lock:
             dev.picked.append(job)
@@ -902,11 +923,12 @@ class CrystalGPU:
     def _drain_batch(self, dev: _DeviceState, first: Job):
         """Greedy coalescing on one device's queue: pull queued jobs
         with ``first``'s fuse key behind it (direct with direct, sliding
-        with identical window/stride).  Returns (batch,
-        carry) where carry is a non-fusable job that was popped and must
-        be executed next."""
+        with identical window/stride, gear with the same version).
+        Returns (batch, carry) where carry is a non-fusable job that was
+        popped and must be executed next."""
         batch = [first]
-        if not (self.coalesce and first.kind in ("direct", "sliding")):
+        if not (self.coalesce
+                and first.kind in ("direct", "sliding", "gear")):
             return batch, None
         rows, width = first.n_rows, first.staged_width
         max_rows = self.policy.cur_rows
@@ -1027,7 +1049,7 @@ class CrystalGPU:
                 if j in dev.picked:
                     dev.picked.remove(j)
                 dev.pending_s = max(dev.pending_s - j.cost_est, 0.0)
-            if failed or kind not in ("direct", "sliding"):
+            if failed or kind not in ("direct", "sliding", "gear"):
                 return
             est = max(self.cost.estimate(kind, padded), 1e-9)
             self.cost.observe(kind, padded, wall_s)
@@ -1146,14 +1168,14 @@ class CrystalGPU:
         self._account(dev, len(batch), int(np.sum(lens)),
                       sum(j.lane == "scrub" for j in batch))
 
-    # -- fused streaming batch (sliding) -------------------------------
+    # -- fused streaming batch (sliding / gear) ------------------------
     def _pull(self, slot: dict, dev: _DeviceState,
               out: torch.Tensor) -> np.ndarray:
         """Copy a kernel output to the host through a reused pinned
         buffer and synchronise the manager's stream."""
         if dev.stream is None:
             return out.numpy()
-        buf = self._staging(slot, "out", tuple(out.shape), out.dtype)
+        buf = self._staging_view(slot, "out", tuple(out.shape), out.dtype)
         buf.view(torch.int32).copy_(out.view(torch.int32),
                                     non_blocking=True)
         dev.sync()
@@ -1162,39 +1184,59 @@ class CrystalGPU:
     def _execute_stream_batch(self, dev: _DeviceState, slot: dict,
                               batch: List[Job]):
         """Execute a burst of same-config stream jobs as ONE padded
-        [B, L] multi-row kernel launch.  Rows are padded to the widest
-        buffer; B and the word width are bucketed to powers of two.  Each
-        job's hashes are sliced out of the fused phase-matrix output."""
+        [B, L] multi-row kernel launch.  Rows are padded at the end to
+        the widest buffer (with stale bytes of a reused staging buffer,
+        which change no kept hash: see ``_staging``).  For sliding, B and
+        the word width are bucketed to powers of two; gear takes any
+        [B, L], so it stages and pulls exactly the burst's rows at the
+        widest job's length.  Each job's hashes are sliced out of the
+        fused output (phase-major [B, R, L/4] for sliding, per-byte
+        [B, L] for gear)."""
         kind = batch[0].kind
-        if kind != "sliding":
+        if kind not in ("sliding", "gear"):
             raise ValueError(f"unknown job kind {kind!r}")
         t0 = time.perf_counter()
         flats = [j.data.reshape(-1).astype(np.uint8, copy=False)
                  for j in batch]
         lens = [f.size for f in flats]
-        n_words = (max(max(lens), 1) + 3) // 4
-        Wb = 1 << (max(n_words, 4) - 1).bit_length()
-        B = 1 << (len(batch) - 1).bit_length()
-        staging = self._staging(slot, "stream", (B, Wb * 4), torch.uint8)
+        if kind == "gear":
+            staging = self._staging_view(slot, "gear",
+                                         (len(batch), max(lens)),
+                                         torch.uint8)
+        else:
+            n_words = (max(max(lens), 1) + 3) // 4
+            Wb = 1 << (max(n_words, 4) - 1).bit_length()
+            B = 1 << (len(batch) - 1).bit_length()
+            staging = self._staging(slot, "stream", (B, Wb * 4),
+                                    torch.uint8)
         rows_u8 = staging.numpy()
         for i, f in enumerate(flats):
             rows_u8[i, :f.size] = f
-        window = int(batch[0].meta.get("window", 48))
-        stride = int(batch[0].meta.get("stride", 4))
-        phases = sliding_md5.phases_for(stride)
+        meta = batch[0].meta
         with dev.on_device():
-            dev_words = staging.view(torch.uint32).to(dev.device,
-                                                      non_blocking=True)
+            dev_rows = staging.to(dev.device, non_blocking=True)
             self._stage_sync(dev)
             t1 = time.perf_counter()
-            out = sliding_md5.sliding_md5_words(dev_words, window // 4,
-                                                stride, stream=dev.stream)
+            if kind == "sliding":
+                window = int(meta.get("window", 48))
+                stride = int(meta.get("stride", 4))
+                out = sliding_md5.sliding_md5_words(
+                    dev_rows.view(torch.uint32), window // 4, stride,
+                    stream=dev.stream)
+            else:
+                out = gear.gear_bytes(dev_rows,
+                                      int(meta.get("version", 1)),
+                                      stream=dev.stream)
             self._stage_sync(dev)
             t2 = time.perf_counter()
-            host = self._pull(slot, dev, out)            # [B, R, Wb]
+            host = self._pull(slot, dev, out)
         for i, j in enumerate(batch):
-            n_off = (lens[i] - window) // stride + 1
-            j.result = ops.sliding_finish(host[i], phases, n_off)
+            if kind == "sliding":
+                n_off = (lens[i] - window) // stride + 1
+                j.result = ops.sliding_finish(
+                    host[i], sliding_md5.phases_for(stride), n_off)
+            else:
+                j.result = ops.gear_finish(host[i], lens[i])
         t3 = time.perf_counter()
         timings = {"in": t1 - t0, "kernel": t2 - t1, "out": t3 - t2}
         for j in batch:

@@ -10,7 +10,7 @@ read path re-hashes fetched blocks (the paper's "traditional system that
 uses hashing to preserve data integrity") and falls back to block
 replicas on node failure.
 
-All hashing — direct block digests, sliding-window CDC, and
+All hashing — direct block digests, sliding-window CDC, gear CDC, and
 read-path verification — flows through the offload engine
 (``SAI.engine``); an SAI constructed without an explicit engine shares
 the process-wide default so concurrent writers' and readers' hash
@@ -52,8 +52,7 @@ Configurations mirror the paper's evaluation matrix:
   ca='none'                 -> non-CA (direct write, no hashing)
   ca='fixed'                -> fixed-size blocks + direct hashing
   ca='cdc'                  -> content-based chunking (sliding-window MD5)
-  ca='cdc-gear'             -> beyond-paper gear-hash CDC (hasher='cpu'
-                               only until the gear kernel is ported)
+  ca='cdc-gear'             -> beyond-paper gear-hash CDC
   hasher='gpu' | 'cpu' | 'infinite'   ('infinite' = the paper's CA-Infinite
         oracle: hash computation takes zero time — upper performance bound;
         'tpu' is accepted as another name for 'gpu', so configurations
@@ -376,10 +375,12 @@ class SAI:
                 max_chunk=cfg.max_chunk)
         if cfg.ca == "cdc-gear":
             if cfg.hasher in ENGINE_HASHERS:
-                raise NotImplementedError(
-                    "ca='cdc-gear' on the GPU waits for the gear CDC "
-                    "slice; use hasher='cpu' until then")
-            hashes = _cpu_gear(data)
+                job = self.engine.submit(
+                    "gear", np.frombuffer(data, np.uint8), {},
+                    lane=cfg.lane)
+                hashes = job.wait()
+            else:
+                hashes = _cpu_gear(data)
             return chunking.select_boundaries(
                 hashes, len(data), window=1, stride=1,
                 avg_chunk=cfg.avg_chunk, min_chunk=cfg.min_chunk,

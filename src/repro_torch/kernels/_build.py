@@ -22,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -37,21 +37,30 @@ SIGNATURES = {
                           _c_void_p],
     "sliding_md5_launch": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int,
                            _c_int, _c_void_p],
+    "gear_launch": [_c_void_p, _c_void_p, _c_int, _c_ll, _c_void_p],
+    "flash_attn_fwd_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                              _c_int, _c_int, _c_int, _c_int, _c_int,
+                              ctypes.c_float, _c_void_p],
 }
 
 
 class LaunchCounter:
     """Plain integer count of one kernel's launches (thread-safe: the
-    engine's manager threads launch concurrently)."""
+    engine's manager threads launch concurrently), and the shape of the
+    launch that read the most bytes since the last reset."""
 
     def __init__(self, name: str):
         self.name = name
         self._lock = threading.Lock()
         self._n = 0
+        self.largest_shape: Tuple[int, ...] = ()
+        self.largest_bytes = 0
 
-    def inc(self):
+    def inc(self, shape: Tuple[int, ...] = (), nbytes: int = 0):
         with self._lock:
             self._n += 1
+            if nbytes > self.largest_bytes:
+                self.largest_shape, self.largest_bytes = shape, nbytes
 
     @property
     def value(self) -> int:
@@ -60,6 +69,7 @@ class LaunchCounter:
     def reset(self):
         with self._lock:
             self._n = 0
+            self.largest_shape, self.largest_bytes = (), 0
 
 
 class _Library:

@@ -1,12 +1,13 @@
 """Host-facing wrappers around the hashing kernels.
 
 Convenience wrappers (``direct_hash``, ``hash_blocks``,
-``sliding_window_hash``) take host arrays and do prep + launch + finish,
-on the card unless the caller passes ``device="cpu"``.  The host-side
-finish helpers (``digest_bytes``, ``sliding_finish``) and the shard
-planners serve the CrystalGPU offload engine, which stages its own pinned
-buffers, copies them to the card on its own stream and calls the kernel
-wrappers (``md5.md5_words``, ``sliding_md5.sliding_md5_words``) itself.
+``sliding_window_hash``, ``gear_hash``) take host arrays and do prep +
+launch + finish, on the card unless the caller passes ``device="cpu"``.
+The host-side finish helpers (``digest_bytes``, ``sliding_finish``,
+``gear_finish``) and the shard planners serve the CrystalGPU offload
+engine, which stages its own pinned buffers, copies them to the card on
+its own stream and calls the kernel wrappers (``md5.md5_words``,
+``sliding_md5.sliding_md5_words``, ``gear.gear_bytes``) itself.
 
 A tensor on the CPU runs the kernels' plain versions; a CUDA tensor runs
 the kernels.  No padding is added for a kernel's sake: the CUDA kernels
@@ -22,6 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import gear as gear_k
 from repro_torch.kernels import md5 as md5_k
 from repro_torch.kernels import sliding_md5 as slide_k
 
@@ -120,6 +122,31 @@ def sliding_window_hash(data: bytes | np.ndarray, window: int = 48,
         words.to(device or DEFAULT_DEVICE)[None], window // 4, stride)[0]
     return sliding_finish(out.cpu().numpy(), slide_k.phases_for(stride),
                           n_off)
+
+
+# --------------------------------------------------------------------------
+# gear rolling hash (beyond-paper CDC)
+# --------------------------------------------------------------------------
+def gear_finish(out: np.ndarray, n_bytes: int) -> np.ndarray:
+    """The first ``n_bytes`` hashes of one per-byte output row, as a new
+    array (the row may be a reused staging buffer)."""
+    return np.array(out[:n_bytes], np.uint32)
+
+
+def gear_hash(data: bytes | np.ndarray, version: int = 1,
+              device=None) -> np.ndarray:
+    """Windowed gear hash at every byte position.  Returns [L] uint32.
+    Positions < 31 differ from ``ref.gear_ref`` (zero-byte history, as
+    the JAX package's ``ops.gear_hash``); chunking never places a
+    boundary inside the minimum chunk size anyway.  ``version`` (1, 2
+    or 3) selects a kernel body in the JAX package; the results are
+    identical and here one kernel serves all three."""
+    buf = np.frombuffer(data, np.uint8) if isinstance(data, (bytes,
+                                                             bytearray)) \
+        else np.asarray(data, np.uint8)
+    rows = torch.from_numpy(np.array(buf, np.uint8))[None]
+    out = gear_k.gear_bytes(rows.to(device or DEFAULT_DEVICE), version)
+    return gear_finish(out[0].cpu().numpy(), buf.size)
 
 
 # ----------------------------------------------------------------------

@@ -173,3 +173,36 @@ def sliding_md5_ref(data_bytes: torch.Tensor, window: int,
              | (wins[..., 3] << 24))                       # [n_off, w/4]
     return md5_window_a([words[:, j] for j in range(window // 4)],
                         window // 4)
+
+
+# --------------------------------------------------------------------------
+# gear rolling hash (beyond-paper CDC primitive)
+# --------------------------------------------------------------------------
+GEAR_WINDOW = 32
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32, the table-free 'gear' function of a byte value:
+    int64 values in [0, 2**32) -> int64 in [0, 2**32)."""
+    x = x.to(torch.int64) & MASK
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & MASK
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & MASK
+    return x ^ (x >> 16)
+
+
+def gear_ref(data_bytes: torch.Tensor) -> torch.Tensor:
+    """Windowed gear hash at every byte position.
+
+    h_i = sum_{j=0}^{31} mix32(b_{i-j} + 1) << j, where positions before
+    the start contribute 0 (not ``mix32(1)``: that is the kernels'
+    zero-byte history).  data_bytes: [L] uint8 -> [L] int64 in
+    [0, 2**32).  Identical to the sequential FastCDC recurrence
+    h = (h << 1) + gear[b] (bits shifted out past 32 drop in both)."""
+    g = mix32(data_bytes.to(torch.int64) + 1)
+    L = g.shape[0]
+    h = torch.zeros_like(g)
+    for j in range(min(GEAR_WINDOW, L)):
+        h[j:] += (g[:L - j] << j) & MASK
+    return h & MASK

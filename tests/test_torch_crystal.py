@@ -17,6 +17,7 @@ from repro.kernels import ops as jops
 from repro_torch.core import crystal as crystal_mod
 from repro_torch.core.crystal import CrystalGPU, LaneQueue
 from repro_torch.core.sai import _cpu_sliding, block_digest_cpu, pack_blocks
+from repro_torch.kernels import ops
 
 CPU = torch.device("cpu")
 
@@ -72,14 +73,20 @@ def test_callbacks_fire(crystal, rng):
     assert res["r"].shape == ((4096 - 48) // 4 + 1,)
 
 
-def test_error_propagation_and_gear_refused(crystal):
+def test_error_propagation_and_gear_refused(crystal, rng):
+    """An unknown kind fails its job, and so does a gear job of a version
+    the JAX package has no kernel body for; the engine keeps serving."""
     job = crystal.submit("nonsense", np.zeros(4, np.uint8), {})
     with pytest.raises(ValueError):
         job.wait()
-    depth = crystal.queue_depth()
-    with pytest.raises(NotImplementedError, match="gear"):
-        crystal.submit("gear", np.zeros(64, np.uint8), {})
-    assert crystal.queue_depth() == depth      # nothing was parked
+    job = crystal.submit("gear", np.zeros(64, np.uint8), {"version": 4})
+    with pytest.raises(ValueError, match="version"):
+        job.wait()
+    buf = rng.integers(0, 256, 777, dtype=np.uint8)
+    for version in (1, 2, 3):
+        got = crystal.submit("gear", buf, {"version": version}).wait()
+        np.testing.assert_array_equal(
+            got, jops.gear_hash(buf.tobytes(), version=version))
 
 
 @pytest.mark.parametrize("reuse,overlap", [(True, True), (False, False),
@@ -136,6 +143,29 @@ def test_sliding_burst_coalesces(rng):
         eng.shutdown()
 
 
+def test_gear_burst_coalesces_by_version(rng):
+    """A burst of ragged gear jobs fuses into fewer launches, each job's
+    hashes equal to the job hashed alone; jobs of versions 1 and 2 never
+    share a launch."""
+    eng = _engine(coalesce_window_s=0.2, max_batch=64)
+    versions = []
+    eng._launch_hook = lambda idx, batch: versions.append(
+        {j.meta.get("version", 1) for j in batch})
+    try:
+        bufs = [rng.integers(0, 256, 2100 + 201 * i, dtype=np.uint8)
+                for i in range(8)]
+        jobs = [eng.submit("gear", b, {"version": 1 + i // 4})
+                for i, b in enumerate(bufs)]
+        for j, b in zip(jobs, bufs):
+            np.testing.assert_array_equal(
+                j.wait(), ops.gear_hash(b.tobytes(), device=CPU))
+        stats = eng.snapshot_stats()
+        assert 2 <= stats["launches"] < stats["jobs"] == len(bufs)
+        assert all(len(v) == 1 for v in versions), versions
+    finally:
+        eng.shutdown()
+
+
 def test_short_stream_job_returns_empty():
     eng = _engine()
     try:
@@ -165,6 +195,23 @@ def test_sharded_direct_and_sliding_reassemble_in_order():
         assert len(busy) >= 2, st["per_device"]
     finally:
         eng.shutdown()
+
+
+def test_sharded_gear_reassembles(rng):
+    """A whale gear job split across [cpu, cpu] (shards at byte offsets
+    that are not word-aligned) equals the unsharded output and the JAX
+    package's."""
+    buf = rng.integers(0, 256, (16 << 10) + 3, np.uint8)
+    eng = _engine(2, shard_min_bytes=8 << 10)
+    try:
+        got = eng.submit("gear", buf, {}).wait()
+        st = eng.snapshot_stats()
+        assert st["sharded_jobs"] == 1 and st["shards"] == 2
+    finally:
+        eng.shutdown()
+    whole = ops.gear_hash(buf.tobytes(), device=CPU)
+    np.testing.assert_array_equal(got, whole)
+    np.testing.assert_array_equal(got, jops.gear_hash(buf.tobytes()))
 
 
 def test_two_managers_share_one_device(rng):
@@ -219,7 +266,7 @@ def test_foreground_jumps_scrub_backlog(rng):
         eng.shutdown()
 
 
-@pytest.mark.parametrize("ca", ["fixed", "cdc"])
+@pytest.mark.parametrize("ca", ["fixed", "cdc", "cdc-gear"])
 def test_reference_sai_drives_crystal_gpu(rng, ca):
     """The JAX package's SAI runs unchanged on the port's engine."""
     eng = _engine(coalesce_window_s=0.01)

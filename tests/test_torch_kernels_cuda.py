@@ -1,7 +1,9 @@
-"""The port's CUDA kernels and engine on the card: each kernel against its
-plain version and ``hashlib``, bit for bit, and two managers sharing one
-card through their own streams.  Every test here needs an NVIDIA GPU and
-``nvcc``; without them it skips.  Run on a GPU machine with
+"""The port's CUDA kernels and engine on the card: each hashing kernel
+against its plain version and ``hashlib`` or ``_cpu_gear``, bit for bit,
+flash attention against its plain version within the JAX package's
+tolerances, and two managers sharing one card through their own
+streams.  Every test here needs an NVIDIA GPU and ``nvcc``; without them
+it skips.  Run on a GPU machine with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py``
 (this file imports neither JAX nor the JAX package)."""
 import hashlib
@@ -11,7 +13,8 @@ import pytest
 import torch
 
 from repro_torch.core import SAI, CrystalGPU, SAIConfig, make_store
-from repro_torch.kernels import md5, ops, sliding_md5
+from repro_torch.core.sai import _cpu_gear
+from repro_torch.kernels import flash_attn, gear, md5, ops, sliding_md5
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +86,78 @@ def test_two_managers_on_one_card_write_and_read(cuda, rng):
         assert eng.snapshot_stats()["launches"] > 0
     finally:
         eng.shutdown()
+
+
+@pytest.mark.parametrize("lens", [[1, 31, 32, 33, 4099], [1 << 20]])
+def test_gear_kernel_matches_plain_and_cpu_gear(cuda, rng, lens):
+    """Ragged rows (lengths under one window, not multiples of 4) stacked
+    into one zero-padded launch: every kept position equals the plain
+    version, and positions >= 31 equal the CPU baseline."""
+    L = max(lens)
+    rows = np.zeros((len(lens), L), np.uint8)
+    for i, n in enumerate(lens):
+        rows[i, :n] = rng.integers(0, 256, n, dtype=np.uint8)
+    data = torch.from_numpy(rows).to(cuda)
+    before = gear.LAUNCHES.value
+    got = gear.gear_bytes(data)
+    assert gear.LAUNCHES.value == before + 1
+    assert _equal(got, gear.gear_plain(data))
+    host = got.cpu().numpy()
+    for i, n in enumerate(lens):
+        alone = ops.gear_hash(rows[i, :n].tobytes(), device=cuda)
+        np.testing.assert_array_equal(host[i, :n], alone)
+        np.testing.assert_array_equal(
+            alone[31:], _cpu_gear(rows[i, :n].tobytes())[31:])
+    with pytest.raises(ValueError):
+        gear.gear_bytes(data, version=4)
+
+
+def test_gear_shard_plan_reassembles(cuda, rng):
+    buf = rng.integers(0, 256, (1 << 20) + 3, dtype=np.uint8)
+    whole = ops.gear_hash(buf.tobytes(), device=cuda)
+    plan = ops.stream_shard_plan(buf.size, "gear", 3)
+    parts = [ops.gear_hash(buf[a:b].tobytes(), device=cuda)[d:]
+             for a, b, d in plan]
+    np.testing.assert_array_equal(np.concatenate(parts), whole)
+
+
+def test_engine_gear_launches_exact_rows(cuda, rng):
+    """A burst of gear jobs whose length is not a power of two: each
+    result equals the plain version, and no launch hashes more than the
+    burst's rows at the job's length."""
+    n = (1 << 20) + 1
+    bufs = [rng.integers(0, 256, n, dtype=np.uint8) for _ in range(3)]
+    eng = CrystalGPU(devices=[cuda], coalesce_window_s=0.2)
+    try:
+        gear.LAUNCHES.reset()
+        jobs = [eng.submit("gear", b, {"version": 1}) for b in bufs]
+        for j, b in zip(jobs, bufs):
+            np.testing.assert_array_equal(
+                j.wait(), ops.gear_hash(b.tobytes(), device="cpu"))
+        rows, width = gear.LAUNCHES.largest_shape
+        assert width == n and rows <= len(bufs)
+    finally:
+        eng.shutdown()
+
+
+# (atol, rtol): f32 as the JAX package's flash tests state it (sums taken
+# in another order); bf16 computes in f32 as well and then rounds the
+# output to bf16, at most 2**-8 of the value, so rtol 2**-8 + 2e-5.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 2e-5)),
+                                       (torch.bfloat16, (3e-5, 4e-3))])
+@pytest.mark.parametrize("S,Sk,hd,bq,bk", [(256, 256, 64, 64, 128),
+                                           (512, 512, 32, 128, 256),
+                                           (128, 128, 128, 128, 128),
+                                           (320, 192, 128, 64, 64),
+                                           (192, 448, 64, 64, 64)])
+def test_flash_kernel_matches_plain(cuda, S, Sk, hd, bq, bk, dtype, tol):
+    """The kernel against its plain version on the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(S + Sk + hd)
+    q, k, v = (torch.randn((3, n, hd), generator=g, device=cuda).to(dtype)
+               for n in (S, Sk, Sk))
+    before = flash_attn.LAUNCHES.value
+    got = flash_attn.flash_attention_fwd(q, k, v, bq=bq, bk=bk)
+    assert flash_attn.LAUNCHES.value == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attn.flash_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want, atol=tol[0], rtol=tol[1])

@@ -45,7 +45,7 @@ def _write_all(sai, series):
     return [f.result(timeout=300) for f in futs]
 
 
-@pytest.mark.parametrize("ca", ["fixed", "cdc"])
+@pytest.mark.parametrize("ca", ["fixed", "cdc", "cdc-gear"])
 def test_slice_matches_reference(series, engines, ca):
     """Reference SAI + CrystalTPU and port SAI + CrystalGPU(cpu) on the
     same series: equal boundaries, block maps (digest, length,
@@ -125,17 +125,21 @@ def test_hasher_alias_and_gear_gate(series, engines):
         sai.write("/f", series[0])
         digests.append([b.digest for b in mgr.files["/f"][0].blocks])
     assert digests[0] == digests[1]
+    # gear CDC: 'gpu' and 'tpu' send it through the engine, 'cpu' keeps
+    # the paper's CPU baseline; all three chunk alike, as the reference's
+    # baseline does
     mgr, _ = core.make_store(2)
-    sai = core.SAI(mgr, core.SAIConfig(ca="cdc-gear", **SMALL), crystal=eng)
-    with pytest.raises(NotImplementedError, match="gear"):
-        sai.write("/g", series[0])
-    # the CPU baseline keeps gear CDC, equal to the reference's
-    cpu = core.SAI(mgr, core.SAIConfig(ca="cdc-gear", hasher="cpu",
-                                       **SMALL))
+    before = eng.snapshot_stats()["jobs"]
+    bounds = [core.SAI(mgr, core.SAIConfig(ca="cdc-gear", hasher=h,
+                                           **SMALL),
+                       crystal=eng)._boundaries(series[1])
+              for h in ("gpu", "tpu", "cpu")]
+    assert eng.snapshot_stats()["jobs"] == before + 2
     rcpu = ref_core.SAI(ref_core.make_store(2)[0],
                         ref_core.SAIConfig(ca="cdc-gear", hasher="cpu",
                                            **SMALL))
-    assert cpu._boundaries(series[1]) == rcpu._boundaries(series[1])
+    assert bounds[0] == bounds[1] == bounds[2] == \
+        rcpu._boundaries(series[1])
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])
