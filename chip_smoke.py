@@ -7,12 +7,16 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs six phases,
 each printing its results:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
-2. build: build time, what ``ptxas -v`` reports (registers, spills) and
-   each kernel's SASS opcode mix (``cuobjdump -sass``);
+2. build: build time, what ``ptxas -v`` reports (registers, spills,
+   warnings), each kernel's SASS opcode mix (``cuobjdump -sass``) with the
+   tensor-core (``HGMMA``) count of the bf16 flash kernel, and a
+   one-thread clock probe of the MD5 round's dependent chain;
 3. every kernel against its plain PyTorch version on the card: the
    hashing kernels bit for bit (and against ``hashlib``, or the CPU gear
    baseline at positions >= 31, and a sharded gear plan reassembled),
-   flash attention within the JAX package's tolerances;
+   flash attention within 2e-5 in f32 and within the bound derived from
+   its rounding in bf16, which the plain version with one key tile
+   dropped must fail;
 4. the main path, the SAI content-addressable write/read path: a series
    of four 256 MiB checkpoint images written with ``write_async`` and read
    back with verification, under fixed 1 MiB blocks (``ca='fixed'``),
@@ -33,10 +37,11 @@ each printing its results:
 6. each kernel at its path's shapes (the sliding kernel at both of its
    strides, gear on one image and on phase 4's largest launch, flash
    attention through its own entry point at llama3-8b's widths and
-   context in bf16 and f32): its time with CUDA events beside its bound,
-   its plain version's time and result on the same inputs, and for
-   flash attention PyTorch's ``scaled_dot_product_attention`` timed
-   beside it.
+   context in bf16 and f32): its time with CUDA events beside its bound
+   (for ``md5_direct`` also the bound of its serial chain, from the
+   probe), its plain version's time and result on the same inputs, and
+   for flash attention PyTorch's ``scaled_dot_product_attention`` timed
+   beside it and the achieved TFLOP/s.
 
 Any failed check raises, so the script exits non-zero.  The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -63,9 +68,9 @@ N_IMAGES = 4
 IMAGE_BYTES = 256 * MiB
 DURABLE_BYTES = 64 * MiB
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-# dense peaks, H100 SXM data sheet: bf16 on the tensor cores, and f32 on
-# the CUDA cores (outside the tensor cores), which the flash kernel's f32
-# FMAs use in both dtypes
+# dense peaks, H100 SXM data sheet: bf16 on the tensor cores (the bf16
+# flash kernel's wgmma), and f32 on the CUDA cores (outside the tensor
+# cores), which the f32 flash kernel's FMAs use
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 # integer instructions per byte the gear hash needs at the least: mix32
@@ -97,11 +102,15 @@ SASS_FUNCTIONS = {"md5_direct": ("md5_direct_kernel",),
                   "sliding_md5": ("sliding_md5_kernelILi12E",
                                   "sliding_md5_kernel<12>"),
                   "gear": ("gear_kernel",),
-                  "flash_attn f32 hd128": ("flash_fwd_kernelIfLi128E",
-                                           "flash_fwd_kernel<float, 128>"),
-                  "flash_attn bf16 hd128": (
-                      "flash_fwd_kernelI13__nv_bfloat16Li128E",
-                      "flash_fwd_kernel<__nv_bfloat16, 128>")}
+                  "flash_attn f32 hd128": ("flash_fwd_kernelILi128E",
+                                           "flash_fwd_kernel<128>"),
+                  "flash_attn bf16 hd128": ("flash_wgmma_kernelILi128E",
+                                            "flash_wgmma_kernel<128>")}
+# SASS opcode of a warpgroup tensor-core product (wgmma)
+TENSOR_OPCODE = "HGMMA"
+# compressions of one message of md5_direct's launch in phase 6 (1 MiB +
+# 4 B: 262145 words), the chain the probe times
+MD5_PROBE_COMPRESSIONS = (MiB // 4 + 1 + 18) // 16
 # WriteStats.similarity of the four versions of checkpoint_series(seed=0)
 # per configuration, to 4 places.  At stride 4 a window is hashed only at
 # offsets 0 mod 4, so an insert of k bytes with k % 4 != 0 moves the
@@ -172,26 +181,45 @@ def max_abs_err(a, b) -> int:
     return int(diff.abs().max()) if diff.numel() else 0
 
 
-# (atol, rtol) of a flash output against the plain version's f32 result
-# on the same inputs.  f32: the JAX package's 2e-5, for sums taken in
-# another order.  bf16: the kernel keeps scores, P and the accumulator in
-# f32 (the same template as f32), so it differs from the plain result by
-# that f32 error plus the final rounding to bf16, at most half an ulp:
-# 2**-8 of the value.  So rtol 4e-3 (2**-8 + 2e-5) and atol 3e-5.
-FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-5, 4e-3)}
+# f32 flash against the plain version: the JAX package's 2e-5 (atol and
+# rtol), for sums taken in another order.  bf16 rounds P to bf16 before
+# P.V (as the reference does) and the output to bf16, so it is held per
+# element to flash_attn.flash_bf16_bound, derived from those two
+# roundings: |got - want| <= 2**-8 |want| + 2**-8 (P |V|) / l + 3e-5.
+F32_TOL = 2e-5
 
 
-def flash_close(got, want, what: str) -> float:
-    """Check a flash output against the plain version's f32 result with
-    the tolerance of ``FLASH_TOL`` for its dtype; return the largest
-    absolute error."""
+def flash_close(got, q, k, v, want, what: str) -> float:
+    """Check a flash output against the plain version's f32 result
+    ``want`` on the same inputs, at 2e-5 in f32 and within the derived
+    per-element bound in bf16; return the largest absolute error."""
     import torch
-    atol, rtol = FLASH_TOL[str(got.dtype).split(".")[-1]]
+    from repro_torch.kernels import flash_attn
     g = got.float()
     check(bool(torch.isfinite(g).all()), f"{what}: finite output")
-    check(torch.allclose(g, want, atol=atol, rtol=rtol),
-          f"{what}: within atol {atol} + rtol {rtol} of the plain version")
-    return float((g - want).abs().max())
+    err = (g - want).abs()
+    if got.dtype == torch.float32:
+        check(torch.allclose(g, want, atol=F32_TOL, rtol=F32_TOL),
+              f"{what}: within {F32_TOL} of the plain version")
+    else:
+        bound = flash_attn.flash_bf16_bound(q, k, v, want)
+        check(bool((err <= bound).all()), f"{what}: within the bf16 bound "
+              f"(worst error {float((err / bound).max()):.3f} of it)")
+    return float(err.max())
+
+
+def plain_dropping(q, k, v, lo: int, hi: int):
+    """The plain version with keys [lo, hi) left out: what a kernel that
+    lost that key tile would return (f32)."""
+    import torch
+    from repro_torch.kernels import flash_attn
+    S, Sk, hd = q.shape[1], k.shape[1], q.shape[2]
+    keep = torch.arange(Sk, device=q.device)[None, :] \
+        <= torch.arange(S, device=q.device)[:, None]
+    keep[:, lo:hi] = False
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * hd ** -0.5
+    s = torch.where(keep[None], s, flash_attn.NEG)
+    return torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), v.float())
 
 
 def time_cuda(fn, flush, repeats: int = 5, warmup: int = 1) -> float:
@@ -262,7 +290,7 @@ def sass_mix(so_path: str, cuobjdump: str):
     return mix
 
 
-def phase_build():
+def phase_build(torch):
     print("== phase 2: build")
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -271,7 +299,7 @@ def phase_build():
           f"(nvcc {lib.seconds:.2f} s)")
     for line in lib.log.splitlines():
         if line.startswith("==") or "registers" in line \
-                or "spill" in line:
+                or "spill" in line or "arning" in line:
             print("  " + line.strip())
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
@@ -284,9 +312,25 @@ def phase_build():
         pipes[name] = (sum(m[op] for op in ALU_OPCODES),
                        sum(m[op] for op in FMA_OPCODES))
         print(f"SASS {name}: {sum(m.values())} instructions, ALU pipe "
-              f"{pipes[name][0]}, IMAD (FMA pipe) {pipes[name][1]}; "
+              f"{pipes[name][0]}, IMAD (FMA pipe) {pipes[name][1]}, "
+              f"{TENSOR_OPCODE} (tensor cores) {m[TENSOR_OPCODE]}; "
               f"{dict(m.most_common(12))}")
-    return pipes
+        if "bf16" in name:
+            check(m[TENSOR_OPCODE] > 0,
+                  f"{name} runs its products on the tensor cores")
+    # one thread runs the MD5 round's chain (md5_compress, as md5.cu
+    # does) over one message's compressions between two clock reads
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):          # the first call loads the module
+        lib.check(lib.cdll.md5_chain_probe_launch(
+            out.data_ptr(), MD5_PROBE_COMPRESSIONS, 7, stream), "md5 probe")
+        torch.cuda.synchronize()
+    cycles_per_round = int(out[0]) / (MD5_PROBE_COMPRESSIONS * 64)
+    print(f"md5 chain probe: {int(out[0])} SM clocks for "
+          f"{MD5_PROBE_COMPRESSIONS} compressions on one thread, "
+          f"{cycles_per_round:.2f} per round")
+    return pipes, cycles_per_round
 
 
 def phase_kernels(torch, np, dev):
@@ -294,7 +338,8 @@ def phase_kernels(torch, np, dev):
     from repro_torch.core.sai import _cpu_gear
     from repro_torch.kernels import flash_attn, gear, md5, ops, sliding_md5
     rng = np.random.default_rng(1)
-    errs = {"md5_direct": 0, "sliding_md5": 0, "gear": 0, "flash_attn": 0.0}
+    errs = {"md5_direct": 0, "sliding_md5": 0, "gear": 0, "flash_attn": 0.0,
+            "flash_attn_f32": 0.0}
     # md5: ragged lens incl. lens == W, one word and zero words; B not a
     # multiple of 32; rows up to 64 KiB
     for B, W in [(45, 16384), (33, 1), (64, 257), (1, 4096)]:
@@ -371,22 +416,37 @@ def phase_kernels(torch, np, dev):
     check(np.array_equal(np.concatenate(parts), host[-1]),
           "sharded gear plan reassembles the unsharded output")
     print(f"gear shard plan {plan}: reassembled == unsharded")
-    # flash: hd 64 and 128, S == Sk and both Sk != S, in f32 and bf16;
-    # the plain version runs on the same (rounded) inputs
+    # flash: hd 32, 64 and 128, S == Sk, both Sk != S and a ragged pair,
+    # in f32 and bf16; the plain version runs on the same (rounded) inputs.
+    # In bf16 the plain version with one key tile dropped must fail the
+    # bound, so a lost or doubled tile cannot pass it.
     gen = torch.Generator(device=dev).manual_seed(5)
     for BH, S, Sk, hd in [(4, 1024, 1024, 64), (4, 1024, 1024, 128),
-                          (4, 512, 1536, 128), (4, 1536, 512, 64)]:
+                          (4, 512, 1536, 128), (4, 1536, 512, 64),
+                          (4, 704, 320, 32)]:
         qkv = [torch.randn((BH, n, hd), generator=gen, device=dev)
                for n in (S, Sk, Sk)]
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, name in ((torch.float32, "flash_attn_f32"),
+                            (torch.bfloat16, "flash_attn")):
             q, k, v = (x.to(dtype) for x in qkv)
-            got = flash_attn.flash_attention_fwd(q, k, v)
+            got = flash_attn.flash_attention_fwd(q, k, v, bq=64, bk=64)
             torch.cuda.synchronize()
-            err = flash_close(got, flash_attn.flash_plain(q, k, v),
-                              f"flash {dtype} BH {BH} S {S} Sk {Sk} hd {hd}")
-            errs["flash_attn"] = max(errs["flash_attn"], err)
-            print(f"flash_attn {str(dtype)[6:]} BH {BH} S {S} Sk {Sk} hd "
-                  f"{hd}: max abs err {err:.3g} vs plain")
+            what = f"flash {str(dtype)[6:]} BH {BH} S {S} Sk {Sk} hd {hd}"
+            want = flash_attn.flash_plain(q, k, v)
+            err = flash_close(got, q, k, v, want, what)
+            errs[name] = max(errs[name], err)
+            line = f"{what}: max abs err {err:.3g} vs plain"
+            if dtype == torch.bfloat16:
+                bound = flash_attn.flash_bf16_bound(q, k, v, want)
+                share = float(((got.float() - want).abs() / bound).max())
+                lost = (plain_dropping(q, k, v, 128, 256) - want).abs()
+                check(not bool((lost <= bound).all()),
+                      f"{what}: the plain version without keys 128-255 "
+                      f"fails the bf16 bound")
+                line += (f", worst {share:.3f} of the bound; keys 128-255 "
+                         f"dropped: {float((lost / bound).max()):.1f} x the "
+                         f"bound")
+            print(line)
     return errs
 
 
@@ -673,7 +733,8 @@ def phase_checkpoint(torch, np, dev):
     return launches
 
 
-def phase_times(torch, np, dev, sm_clocks, pipes, errs, gear_largest):
+def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
+                gear_largest):
     print("== phase 6: kernels at their paths' shapes: times (CUDA "
           "events, L2 flushed) and checks against the plain versions")
     from repro_torch.kernels import flash_attn, gear, md5, sliding_md5
@@ -736,6 +797,16 @@ def phase_times(torch, np, dev, sm_clocks, pipes, errs, gear_largest):
           f"bound {b_ms:.4f} ms ({b_by}, {ops_per_compression()} integer "
           f"instructions per compression); plain {plain_ms:.1f} ms, "
           f"bit-exact; library: none (no PyTorch call computes MD5)")
+    # every message is one chain of dependent rounds: no launch ends
+    # before its longest message's chain at the max SM clock
+    check(nchunks == MD5_PROBE_COMPRESSIONS, "the probe times one message")
+    clock_hz = sm_clocks / torch.cuda.get_device_properties(0) \
+        .multi_processor_count
+    chain_ms = nchunks * 64 * cycles_per_round / clock_hz * 1e3
+    print(f"md5_direct: chain bound {chain_ms:.3f} ms ({nchunks * 64} "
+          f"dependent rounds x {cycles_per_round:.2f} SM clocks per round "
+          f"at {clock_hz / 1e6:.0f} MHz); the kernel takes "
+          f"{ms / chain_ms:.2f} x it")
     del words, got
     # sliding: one 256 MiB image, window 48, at stride 4 (the entry of
     # the kernels line) and at stride 1, each against the plain version
@@ -802,18 +873,18 @@ def phase_times(torch, np, dev, sm_clocks, pipes, errs, gear_largest):
                             device=dev).repeat_interleave(group, 0)
                 for _ in range(2))
     flops = 4 * BH * hd * sum(min(i + 1, S) for i in range(S))
-    flash_launches = None
-    for dtype in (torch.bfloat16, torch.float32):
+    launches = {}
+    for dtype, name in ((torch.bfloat16, "flash_attn"),
+                        (torch.float32, "flash_attn_f32")):
         q, k, v = (t.to(dtype) for t in (q32, k32, v32))
-        if flash_launches is None:          # the entry point's own path
-            flash_attn.LAUNCHES.reset()
-            first = flash_attn.flash_attention_fwd(q, k, v)
-            torch.cuda.synchronize()
-            flash_launches = flash_attn.LAUNCHES.value
-            check(flash_launches == 1 and first.dtype == dtype
-                  and first.shape == q.shape, "flash_attention_fwd "
-                  "launched its kernel once and kept shape and dtype")
-            del first
+        flash_attn.LAUNCHES.reset()         # the entry point's own path
+        first = flash_attn.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        launches[name] = flash_attn.LAUNCHES.value
+        check(launches[name] == 1 and first.dtype == dtype
+              and first.shape == q.shape, "flash_attention_fwd launched "
+              "its kernel once and kept shape and dtype")
+        del first
         ms = time_cuda(lambda: flash_attn.flash_attention_fwd(q, k, v),
                        flush)
         got = flash_attn.flash_attention_fwd(q, k, v)
@@ -821,9 +892,9 @@ def phase_times(torch, np, dev, sm_clocks, pipes, errs, gear_largest):
         plain_ms = time_cuda(
             lambda: want.setdefault("v", flash_attn.flash_plain(q, k, v)),
             flush, repeats=1, warmup=0)
-        err = flash_close(got, want.pop("v"),
+        err = flash_close(got, q, k, v, want.pop("v"),
                           f"flash {dtype} at BH {BH} S {S} hd {hd}")
-        errs["flash_attn"] = max(errs["flash_attn"], err)
+        errs[name] = max(errs[name], err)
         del got
         sdpa = torch.nn.functional.scaled_dot_product_attention
         q4, k4, v4 = (t.view(1, BH, S, hd) for t in (q, k, v))
@@ -834,19 +905,17 @@ def phase_times(torch, np, dev, sm_clocks, pipes, errs, gear_largest):
         t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
         b_ms = max(t_ops, t_bytes) * 1e3
         b_by = "operations" if t_ops >= t_bytes else "bytes"
-        name = str(dtype).split(".")[-1]
-        desc = f"q, k, v [{BH}, {S}, {hd}] {name}, causal"
-        print(f"flash_attn: {ms:.3f} ms at {desc}; bound {b_ms:.4f} ms "
-              f"({b_by}: {flops:.4g} FLOP at {peak / 1e12:.0f} TFLOP/s, "
-              f"Q+K+V+O {nbytes} B); plain {plain_ms:.1f} ms, max abs err "
+        desc = f"q, k, v [{BH}, {S}, {hd}] {str(dtype)[6:]}, causal"
+        print(f"{name}: {ms:.3f} ms at {desc} ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s); bound {b_ms:.4f} ms ({b_by}: {flops:.4g} FLOP at "
+              f"{peak / 1e12:.0f} TFLOP/s, Q+K+V+O {nbytes} B), "
+              f"{b_ms / ms:.1%} of it; plain {plain_ms:.1f} ms, max abs err "
               f"{err:.3g}; library scaled_dot_product_attention "
-              f"{lib_ms:.3f} ms")
-        if dtype == torch.bfloat16:
-            out["flash_attn"] = {"ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": b_ms, "bound_by": b_by,
-                                 "shape": desc, "library_ms": lib_ms}
+              f"{lib_ms:.3f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s)")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "shape": desc, "library_ms": lib_ms}
         del q, k, v, q4, k4, v4
-    return out, flash_launches
+    return out, launches
 
 
 def main() -> int:
@@ -858,7 +927,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi, sm_clocks = phase_env(torch)
-    pipes = phase_build()
+    pipes, cycles_per_round = phase_build(torch)
     errs = phase_kernels(torch, np, dev)
     t0 = time.perf_counter()
     series = checkpoint_series(N_IMAGES, IMAGE_BYTES, 0.15, seed=0)
@@ -868,8 +937,9 @@ def main() -> int:
     launches, gear_largest = phase_main_path(torch, np, series)
     del series
     phase_checkpoint(torch, np, dev)
-    times, launches["flash_attn"] = phase_times(torch, np, dev, sm_clocks,
-                                                pipes, errs, gear_largest)
+    times, flash_launches = phase_times(torch, np, dev, sm_clocks, pipes,
+                                        cycles_per_round, errs, gear_largest)
+    launches.update(flash_launches)
     kernels = []
     for name, counter, source, replaces in [
             ("md5_direct", "md5", "src/repro_torch/kernels/csrc/md5.cu",
@@ -880,6 +950,9 @@ def main() -> int:
             ("gear", "gear", "src/repro_torch/kernels/csrc/gear.cu",
              "src/repro/kernels/gear.py:134"),
             ("flash_attn", "flash_attn",
+             "src/repro_torch/kernels/csrc/flash_attn_wgmma.cu",
+             "src/repro/kernels/flash_attn.py:74"),
+            ("flash_attn_f32", "flash_attn_f32",
              "src/repro_torch/kernels/csrc/flash_attn.cu",
              "src/repro/kernels/flash_attn.py:74")]:
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -39,8 +39,12 @@ SIGNATURES = {
                            _c_int, _c_void_p],
     "gear_launch": [_c_void_p, _c_void_p, _c_int, _c_ll, _c_void_p],
     "flash_attn_fwd_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                              _c_int, _c_int, _c_int, _c_int, _c_int,
+                              _c_int, _c_int, _c_int, _c_int,
                               ctypes.c_float, _c_void_p],
+    "flash_attn_wgmma_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                                _c_int, _c_int, _c_int, _c_int,
+                                ctypes.c_float, _c_void_p],
+    "md5_chain_probe_launch": [_c_void_p, _c_ll, _c_int, _c_void_p],
 }
 
 

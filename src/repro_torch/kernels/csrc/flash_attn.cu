@@ -8,19 +8,19 @@
 // one (bh, 64-row q tile) and loops over the k/v tiles itself, with m, l
 // and the output accumulator in registers.
 //
-// Semantics as the reference: q [BH, S, hd], k and v [BH, Sk, hd], f32 or
-// bf16; scores (q . k) * hd^-0.5 in f32; mask k_pos <= q_pos on absolute
-// positions (aligned at the start, also when Sk != S); k tiles wholly
-// above the diagonal are skipped; the output is acc / l cast to q's type.
-// P stays in f32 for the P.V product (the reference casts it to v's
-// type first).  expf and f32 FMAs throughout; no fast-math.
+// This is the f32 path; bf16 runs on the tensor cores in
+// flash_attn_wgmma.cu.  Semantics as the reference: q [BH, S, hd], k and v
+// [BH, Sk, hd] in f32; scores (q . k) * hd^-0.5; mask k_pos <= q_pos on
+// absolute positions (aligned at the start, also when Sk != S); k tiles
+// wholly above the diagonal are skipped; the output is acc / l.  expf and
+// f32 FMAs throughout; no fast-math.
 //
 // What bounds it on this card: at S = Sk = 8192, hd = 128 the causal
 // products are about 5.5e11 FLOP on 0.27 GB of inputs, so the card's
-// arithmetic rate bounds it, not memory.  This first kernel computes both
-// products in plain f32 FMAs on the CUDA cores, whose peak (67 TFLOP/s,
-// SXM data sheet) is far below the bf16 tensor cores' 989; moving the
-// products to wgmma (bf16) is later work.  What the design does: each
+// arithmetic rate bounds it, not memory.  This kernel computes both
+// products in plain f32 FMAs on the CUDA cores (67 TFLOP/s, SXM data
+// sheet); the tensor cores' f32 modes (TF32) keep too few digits for the
+// reference's 2e-5 without error compensation.  What the design does: each
 // thread computes a 4 x 4 tile of scores and a 4 x hd/16 tile of the
 // output from shared memory, so every shared-memory word it loads feeds
 // 4 FMAs; K is stored transposed with a padded row (65 words) so its
@@ -28,13 +28,12 @@
 // stored transposed with rows of 68 words so the 16-byte P writes of a
 // quarter warp fall in distinct banks.
 //
-// Interface: q, k, v, o device pointers (contiguous), bh, s, sk, hd in
-// {32, 64, 128}, is_bf16, scale.  Grid (ceil(S / 64), BH), 256 threads,
+// Interface: q, k, v, o f32 device pointers (contiguous), bh, s, sk, hd in
+// {32, 64, 128}, scale.  Grid (ceil(S / 64), BH), 256 threads,
 // dynamic shared memory (up to 116 KB at hd 128).  Launches on the given
 // stream and does not synchronise; returns cudaGetLastError(), or
 // cudaErrorInvalidValue for an unsupported hd.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,31 +47,16 @@ constexpr int kKStr = kBK + 1;    // kT row stride (words)
 constexpr int kPStr = kBQ + 4;    // pT row stride (words, 16-byte rows)
 constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ float load_f(const float* p, long long i) {
-  return p[i];
-}
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p,
-                                        long long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, long long i, float x) {
-  p[i] = x;
-}
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, long long i,
-                                        float x) {
-  p[i] = __float2bfloat16(x);
-}
-
 template <int HD>
 constexpr int smem_floats() {
   return HD * kBQ + HD * kKStr + kBK * HD + kBK * kPStr;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int S,
-                     int Sk, float scale) {
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int S, int Sk, float scale) {
   constexpr int kCols = HD / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qT = smem;                // [HD][kBQ]
@@ -90,9 +74,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = tid; e < kBQ * HD; e += kThreads) {
     const int r = e / HD, d = e % HD;
     qT[d * kBQ + r] =
-        q0 + r < S
-            ? load_f(q, qbase + static_cast<long long>(q0 + r) * HD + d)
-            : 0.f;
+        q0 + r < S ? q[qbase + static_cast<long long>(q0 + r) * HD + d] : 0.f;
   }
 
   float acc[4][kCols];
@@ -115,8 +97,8 @@ __global__ void __launch_bounds__(kThreads)
       const int r = e / HD, d = e % HD;
       const bool in = k0 + r < Sk;
       const long long gi = kbase + static_cast<long long>(k0 + r) * HD + d;
-      kT[d * kKStr + r] = in ? load_f(k, gi) : 0.f;
-      vs[r * HD + d] = in ? load_f(v, gi) : 0.f;
+      kT[d * kKStr + r] = in ? k[gi] : 0.f;
+      vs[r * HD + d] = in ? v[gi] : 0.f;
     }
     __syncthreads();
 
@@ -218,51 +200,43 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = HD >= 64 ? 64 * (c / 4) + 4 * tx + (c % 4) : 2 * tx + c;
-      store_f(o, ob + col, acc[i][c] / l[i]);
+      o[ob + col] = acc[i][c] / l[i];
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int s, int sk, float scale, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) * smem_floats<HD>();
-  auto kernel = flash_fwd_kernel<T, HD>;
+  auto kernel = flash_fwd_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((s + kBQ - 1) / kBQ),
                   static_cast<unsigned>(bh));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s, sk, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), s, sk, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int bh,
-              int s, int sk, int hd, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, bh, s, sk, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, bh, s, sk, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, bh, s, sk, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
                                      const void* v, void* o, int bh, int s,
-                                     int sk, int hd, int is_bf16,
-                                     float scale, void* stream) {
+                                     int sk, int hd, float scale,
+                                     void* stream) {
   if (bh <= 0 || s <= 0 || sk <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_hd<__nv_bfloat16>(q, k, v, o, bh, s, sk, hd, scale,
-                                            st)
-                 : launch_hd<float>(q, k, v, o, bh, s, sk, hd, scale, st);
+  switch (hd) {
+    case 32:
+      return launch<32>(q, k, v, o, bh, s, sk, scale, st);
+    case 64:
+      return launch<64>(q, k, v, o, bh, s, sk, scale, st);
+    case 128:
+      return launch<128>(q, k, v, o, bh, s, sk, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

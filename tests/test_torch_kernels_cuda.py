@@ -1,9 +1,9 @@
 """The port's CUDA kernels and engine on the card: each hashing kernel
 against its plain version and ``hashlib`` or ``_cpu_gear``, bit for bit,
-flash attention against its plain version within the JAX package's
-tolerances, and two managers sharing one card through their own
-streams.  Every test here needs an NVIDIA GPU and ``nvcc``; without them
-it skips.  Run on a GPU machine with
+flash attention against its plain version (f32 within the JAX package's
+2e-5, bf16 within the bound derived from its rounding), and two managers
+sharing one card through their own streams.  Every test here needs an
+NVIDIA GPU and ``nvcc``; without them it skips.  Run on a GPU machine with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py``
 (this file imports neither JAX nor the JAX package)."""
 import hashlib
@@ -140,18 +140,36 @@ def test_engine_gear_launches_exact_rows(cuda, rng):
         eng.shutdown()
 
 
-# (atol, rtol): f32 as the JAX package's flash tests state it (sums taken
-# in another order); bf16 computes in f32 as well and then rounds the
-# output to bf16, at most 2**-8 of the value, so rtol 2**-8 + 2e-5.
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 2e-5)),
-                                       (torch.bfloat16, (3e-5, 4e-3))])
+def _plain_dropping(q, k, v, lo, hi):
+    """The plain version with keys [lo, hi) left out: what a kernel that
+    lost that key tile would return."""
+    S, Sk, hd = q.shape[1], k.shape[1], q.shape[2]
+    keep = torch.arange(Sk, device=q.device)[None, :] \
+        <= torch.arange(S, device=q.device)[:, None]
+    keep[:, lo:hi] = False
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * hd ** -0.5
+    s = torch.where(keep[None], s, flash_attn.NEG)
+    return torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), v.float())
+
+
+# f32: 2e-5 as the JAX package's flash tests state it (sums taken in
+# another order).  bf16: the kernel rounds P to bf16 before P.V, as the
+# reference does, and the output to bf16; flash_attn.flash_bf16_bound
+# derives the per-element bound from those two roundings:
+# |got - want| <= 2**-8 |want| + 2**-8 (P |V|) / l + 3e-5.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,Sk,hd,bq,bk", [(256, 256, 64, 64, 128),
                                            (512, 512, 32, 128, 256),
                                            (128, 128, 128, 128, 128),
                                            (320, 192, 128, 64, 64),
-                                           (192, 448, 64, 64, 64)])
-def test_flash_kernel_matches_plain(cuda, S, Sk, hd, bq, bk, dtype, tol):
-    """The kernel against its plain version on the same inputs."""
+                                           (192, 448, 64, 64, 64),
+                                           (192, 320, 32, 64, 64),
+                                           (320, 64, 64, 64, 64),
+                                           (448, 704, 128, 64, 64)])
+def test_flash_kernel_matches_plain(cuda, S, Sk, hd, bq, bk, dtype):
+    """The kernel of each dtype against its plain version on the same
+    inputs, ragged lengths and Sk != S both ways included; in bf16 the
+    plain version with one key tile dropped must fail the bound."""
     g = torch.Generator(device=cuda).manual_seed(S + Sk + hd)
     q, k, v = (torch.randn((3, n, hd), generator=g, device=cuda).to(dtype)
                for n in (S, Sk, Sk))
@@ -160,4 +178,12 @@ def test_flash_kernel_matches_plain(cuda, S, Sk, hd, bq, bk, dtype, tol):
     assert flash_attn.LAUNCHES.value == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attn.flash_plain(q, k, v)
-    torch.testing.assert_close(got.float(), want, atol=tol[0], rtol=tol[1])
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        return
+    bound = flash_attn.flash_bf16_bound(q, k, v, want)
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool(((got.float() - want).abs() <= bound).all())
+    if Sk > 64:
+        lost = _plain_dropping(q, k, v, 64, 128)
+        assert not bool(((lost - want).abs() <= bound).all())
