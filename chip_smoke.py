@@ -9,14 +9,14 @@ each printing its results:
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
 2. build: build time, what ``ptxas -v`` reports (registers, spills,
    warnings), each kernel's SASS opcode mix (``cuobjdump -sass``) with the
-   tensor-core (``HGMMA``) count of the bf16 flash kernel, and a
+   tensor-core (``HGMMA``) count of the bf16 and f32 flash kernels, and a
    one-thread clock probe of the MD5 round's dependent chain;
 3. every kernel against its plain PyTorch version on the card: the
    hashing kernels bit for bit (and against ``hashlib``, or the CPU gear
    baseline at positions >= 31, and a sharded gear plan reassembled),
    flash attention within 2e-5 in f32 and within the bound derived from
    its rounding in bf16, which the plain version with one key tile
-   dropped must fail;
+   dropped must fail, and the f32 kernel's TF32 pre-pass bit for bit;
 4. the main path, the SAI content-addressable write/read path: a series
    of four 256 MiB checkpoint images written with ``write_async`` and read
    back with verification, under fixed 1 MiB blocks (``ca='fixed'``),
@@ -41,7 +41,9 @@ each printing its results:
    (for ``md5_direct`` also the bound of its serial chain, from the
    probe), its plain version's time and result on the same inputs, and
    for flash attention PyTorch's ``scaled_dot_product_attention`` timed
-   beside it and the achieved TFLOP/s.
+   beside it and the achieved TFLOP/s; the f32 path's TF32 pre-pass is
+   also timed alone, and the f32 bound is that of 3xTF32 on the tensor
+   cores, the cheaper of the two ways to f32 accuracy.
 
 Any failed check raises, so the script exits non-zero.  The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -68,11 +70,14 @@ N_IMAGES = 4
 IMAGE_BYTES = 256 * MiB
 DURABLE_BYTES = 64 * MiB
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-# dense peaks, H100 SXM data sheet: bf16 on the tensor cores (the bf16
-# flash kernel's wgmma), and f32 on the CUDA cores (outside the tensor
-# cores), which the f32 flash kernel's FMAs use
+# dense peaks, H100 SXM data sheet: bf16 and TF32 on the tensor cores
+# (the flash kernels' wgmma), and f32 on the CUDA cores (outside the
+# tensor cores).  An f32-accurate product costs either one f32 FMA or
+# three TF32 products (hi.hi + hi.lo + lo.hi, the f32 flash kernel's way)
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 FP32_FLOP_PER_S = 67e12
+TF32_PRODUCTS = 3
 # integer instructions per byte the gear hash needs at the least: mix32
 # of b + 1 (one add, three xor-shift pairs, two multiplies) and one
 # shift-add of the recurrence h = (h << 1) + g
@@ -102,8 +107,9 @@ SASS_FUNCTIONS = {"md5_direct": ("md5_direct_kernel",),
                   "sliding_md5": ("sliding_md5_kernelILi12E",
                                   "sliding_md5_kernel<12>"),
                   "gear": ("gear_kernel",),
-                  "flash_attn f32 hd128": ("flash_fwd_kernelILi128E",
-                                           "flash_fwd_kernel<128>"),
+                  "flash_attn f32 hd128": ("flash_tf32_kernelILi128E",
+                                           "flash_tf32_kernel<128>"),
+                  "flash_tf32_split": ("tf32_split_kernel",),
                   "flash_attn bf16 hd128": ("flash_wgmma_kernelILi128E",
                                             "flash_wgmma_kernel<128>")}
 # SASS opcode of a warpgroup tensor-core product (wgmma)
@@ -222,6 +228,21 @@ def plain_dropping(q, k, v, lo: int, hi: int):
     return torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), v.float())
 
 
+def split_matches(q, k, v, what: str) -> float:
+    """Check the f32 flash kernel's TF32 pre-pass against its plain
+    version bit for bit; return the largest absolute difference (0)."""
+    import torch
+    from repro_torch.kernels import flash_attn
+    got = flash_attn.tf32_split(q, k, v)
+    torch.cuda.synchronize()
+    want = flash_attn.tf32_split_plain(q, k, v)
+    for name, a, b in zip(("q_hi", "q_lo", "k_hi", "k_lo", "vt_hi", "vt_lo"),
+                          got, want):
+        check(a.shape == b.shape and words_equal(a, b),
+              f"{what}: pre-pass {name} == plain bit for bit")
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
 def time_cuda(fn, flush, repeats: int = 5, warmup: int = 1) -> float:
     """Median ms of ``fn`` between CUDA events, with the L2 cache flushed
     (a 256 MiB write) before every launch."""
@@ -268,7 +289,8 @@ def phase_env(torch):
           f"{HBM_BYTES_PER_S / 1e12} TB/s (data sheet)")
     print(f"float peaks (data sheet, dense): f32 outside the tensor cores "
           f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s, bf16 on the tensor cores "
-          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s")
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, TF32 "
+          f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s")
     return smi, sm_clocks
 
 
@@ -315,7 +337,7 @@ def phase_build(torch):
               f"{pipes[name][0]}, IMAD (FMA pipe) {pipes[name][1]}, "
               f"{TENSOR_OPCODE} (tensor cores) {m[TENSOR_OPCODE]}; "
               f"{dict(m.most_common(12))}")
-        if "bf16" in name:
+        if name.startswith("flash_attn"):
             check(m[TENSOR_OPCODE] > 0,
                   f"{name} runs its products on the tensor cores")
     # one thread runs the MD5 round's chain (md5_compress, as md5.cu
@@ -339,7 +361,7 @@ def phase_kernels(torch, np, dev):
     from repro_torch.kernels import flash_attn, gear, md5, ops, sliding_md5
     rng = np.random.default_rng(1)
     errs = {"md5_direct": 0, "sliding_md5": 0, "gear": 0, "flash_attn": 0.0,
-            "flash_attn_f32": 0.0}
+            "flash_attn_f32": 0.0, "flash_tf32_split": 0.0}
     # md5: ragged lens incl. lens == W, one word and zero words; B not a
     # multiple of 32; rows up to 64 KiB
     for B, W in [(45, 16384), (33, 1), (64, 257), (1, 4096)]:
@@ -419,7 +441,8 @@ def phase_kernels(torch, np, dev):
     # flash: hd 32, 64 and 128, S == Sk, both Sk != S and a ragged pair,
     # in f32 and bf16; the plain version runs on the same (rounded) inputs.
     # In bf16 the plain version with one key tile dropped must fail the
-    # bound, so a lost or doubled tile cannot pass it.
+    # bound, so a lost or doubled tile cannot pass it.  In f32 the TF32
+    # pre-pass is checked bit for bit against its plain version.
     gen = torch.Generator(device=dev).manual_seed(5)
     for BH, S, Sk, hd in [(4, 1024, 1024, 64), (4, 1024, 1024, 128),
                           (4, 512, 1536, 128), (4, 1536, 512, 64),
@@ -432,6 +455,10 @@ def phase_kernels(torch, np, dev):
             got = flash_attn.flash_attention_fwd(q, k, v, bq=64, bk=64)
             torch.cuda.synchronize()
             what = f"flash {str(dtype)[6:]} BH {BH} S {S} Sk {Sk} hd {hd}"
+            if dtype == torch.float32:
+                errs["flash_tf32_split"] = max(errs["flash_tf32_split"],
+                                               split_matches(q, k, v, what))
+                print(f"{what}: TF32 pre-pass bit-exact vs plain")
             want = flash_attn.flash_plain(q, k, v)
             err = flash_close(got, q, k, v, want, what)
             errs[name] = max(errs[name], err)
@@ -733,6 +760,30 @@ def phase_checkpoint(torch, np, dev):
     return launches
 
 
+def time_split(flush, q, k, v, errs):
+    """The f32 flash kernel's TF32 pre-pass alone at the entry point's
+    shape: its time beside its byte bound (q, k, v read once, six planes
+    written once) and its plain version's, checked bit for bit."""
+    from repro_torch.kernels import flash_attn
+    ms = time_cuda(lambda: flash_attn.tf32_split(q, k, v), flush)
+    what = f"pre-pass at {list(q.shape)}"
+    errs["flash_tf32_split"] = max(errs["flash_tf32_split"],
+                                   split_matches(q, k, v, what))
+    plain_ms = time_cuda(lambda: flash_attn.tf32_split_plain(q, k, v), flush,
+                         repeats=1, warmup=0)
+    planes = flash_attn.tf32_split(q, k, v)
+    nbytes = q.nbytes + k.nbytes + v.nbytes + sum(p.nbytes for p in planes)
+    del planes
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    desc = f"q, k, v {list(q.shape)} f32 to six TF32 planes"
+    print(f"flash_tf32_split: {ms:.3f} ms at {desc}; bound {b_ms:.4f} ms "
+          f"(bytes: {nbytes} B at 3.35 TB/s), {b_ms / ms:.1%} of it; plain "
+          f"{plain_ms:.1f} ms, bit-exact; library: none (no one PyTorch "
+          f"call splits into TF32 planes)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": "bytes", "shape": desc, "library_ms": None}
+
+
 def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
                 gear_largest):
     print("== phase 6: kernels at their paths' shapes: times (CUDA "
@@ -877,13 +928,20 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
     for dtype, name in ((torch.bfloat16, "flash_attn"),
                         (torch.float32, "flash_attn_f32")):
         q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        f32 = dtype == torch.float32
         flash_attn.LAUNCHES.reset()         # the entry point's own path
+        flash_attn.SPLIT_LAUNCHES.reset()
         first = flash_attn.flash_attention_fwd(q, k, v)
         torch.cuda.synchronize()
         launches[name] = flash_attn.LAUNCHES.value
         check(launches[name] == 1 and first.dtype == dtype
               and first.shape == q.shape, "flash_attention_fwd launched "
               "its kernel once and kept shape and dtype")
+        check(flash_attn.SPLIT_LAUNCHES.value == int(f32),
+              "the TF32 pre-pass ran once in f32 and not in bf16")
+        if f32:
+            launches["flash_tf32_split"] = flash_attn.SPLIT_LAUNCHES.value
+            out["flash_tf32_split"] = time_split(flush, q, k, v, errs)
         del first
         ms = time_cuda(lambda: flash_attn.flash_attention_fwd(q, k, v),
                        flush)
@@ -899,19 +957,33 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
         sdpa = torch.nn.functional.scaled_dot_product_attention
         q4, k4, v4 = (t.view(1, BH, S, hd) for t in (q, k, v))
         lib_ms = time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True), flush)
-        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-            else FP32_FLOP_PER_S
         nbytes = 4 * q.nbytes
-        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        if f32:     # the cheaper way to f32 accuracy: FMAs or 3xTF32
+            t_fma = flops / FP32_FLOP_PER_S
+            t_ops = TF32_PRODUCTS * flops / TF32_FLOP_PER_S
+            how = (f"{TF32_PRODUCTS} x {flops:.4g} FLOP in TF32 at "
+                   f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s, cheaper than f32 "
+                   f"FMAs at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
+                   f"{max(t_fma, t_bytes) * 1e3:.4f} ms")
+        else:
+            t_ops = flops / BF16_FLOP_PER_S
+            how = f"{flops:.4g} FLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s"
         b_ms = max(t_ops, t_bytes) * 1e3
         b_by = "operations" if t_ops >= t_bytes else "bytes"
         desc = f"q, k, v [{BH}, {S}, {hd}] {str(dtype)[6:]}, causal"
         print(f"{name}: {ms:.3f} ms at {desc} ({flops / ms / 1e9:.1f} "
-              f"TFLOP/s); bound {b_ms:.4f} ms ({b_by}: {flops:.4g} FLOP at "
-              f"{peak / 1e12:.0f} TFLOP/s, Q+K+V+O {nbytes} B), "
-              f"{b_ms / ms:.1%} of it; plain {plain_ms:.1f} ms, max abs err "
-              f"{err:.3g}; library scaled_dot_product_attention "
-              f"{lib_ms:.3f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s)")
+              f"TFLOP/s useful); bound {b_ms:.4f} ms ({b_by}: {how}; "
+              f"Q+K+V+O {nbytes} B), {b_ms / ms:.1%} of it; plain "
+              f"{plain_ms:.1f} ms, max abs err {err:.3g}; library "
+              f"scaled_dot_product_attention {lib_ms:.3f} ms "
+              f"({flops / lib_ms / 1e9:.1f} TFLOP/s), the kernel "
+              f"{lib_ms / ms:.2f} x its speed")
+        if f32:
+            split_ms = out["flash_tf32_split"]["ms"]
+            print(f"{name}: of its {ms:.3f} ms the TF32 pre-pass takes "
+                  f"{split_ms:.3f} ms ({split_ms / ms:.1%}) and the main "
+                  f"kernel about {ms - split_ms:.3f} ms")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "shape": desc, "library_ms": lib_ms}
         del q, k, v, q4, k4, v4
@@ -953,7 +1025,10 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/flash_attn_wgmma.cu",
              "src/repro/kernels/flash_attn.py:74"),
             ("flash_attn_f32", "flash_attn_f32",
-             "src/repro_torch/kernels/csrc/flash_attn.cu",
+             "src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
+             "src/repro/kernels/flash_attn.py:74"),
+            ("flash_tf32_split", "flash_tf32_split",
+             "src/repro_torch/kernels/csrc/flash_attn_tf32.cu",
              "src/repro/kernels/flash_attn.py:74")]:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,

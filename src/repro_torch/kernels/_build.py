@@ -38,9 +38,9 @@ SIGNATURES = {
     "sliding_md5_launch": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int,
                            _c_int, _c_void_p],
     "gear_launch": [_c_void_p, _c_void_p, _c_int, _c_ll, _c_void_p],
-    "flash_attn_fwd_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                              _c_int, _c_int, _c_int, _c_int,
-                              ctypes.c_float, _c_void_p],
+    "flash_tf32_split_launch": [_c_void_p] * 9 + [_c_int] * 5 + [_c_void_p],
+    "flash_attn_tf32_launch": [_c_void_p] * 7 + [_c_int] * 5
+                              + [ctypes.c_float, _c_void_p],
     "flash_attn_wgmma_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                                 _c_int, _c_int, _c_int, _c_int,
                                 ctypes.c_float, _c_void_p],

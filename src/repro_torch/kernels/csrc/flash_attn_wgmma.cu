@@ -7,8 +7,8 @@
 // accumulated in f32; mask k_pos <= q_pos on absolute positions (aligned
 // at the start, also when Sk != S); an online softmax in f32; P rounded to
 // bf16 before P.V, as the reference casts it to v's dtype; the output
-// acc / l (l summed from the f32 P) rounded to bf16.  The f32 path stays
-// on the CUDA-core kernel in flash_attn.cu.
+// acc / l (l summed from the f32 P) rounded to bf16.  The f32 path is
+// flash_attn_tf32.cu.
 //
 // What bounds it on this card: at S = Sk = 8192, hd = 128 the causal
 // products are about 5.5e11 FLOP on 0.27 GB of inputs, so the tensor

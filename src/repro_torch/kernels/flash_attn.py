@@ -9,15 +9,21 @@ with Sk != S the mask is aligned at the start (not PyTorch's end-aligned
 decode mask).  No module of the JAX package calls it besides its tests:
 this function is its own entry point.
 
-Two kernels, chosen by dtype, take hd 32, 64 or 128, accumulate in f32
-with an online softmax and skip key tiles wholly above the diagonal;
-``bq`` and ``bk`` are the TPU kernel's VMEM block sizes and remain here
-only as the shape contract:
+Two kernels, chosen by dtype, take hd 32, 64 or 128, run both products
+on the tensor cores (TMA loads, wgmma), accumulate in f32 with an online
+softmax and skip key tiles wholly above the diagonal; ``bq`` and ``bk``
+are the TPU kernel's VMEM block sizes and remain here only as the shape
+contract:
 
-- bf16: ``csrc/flash_attn_wgmma.cu``, on the tensor cores (TMA loads,
-  wgmma for both products, 128 queries by 128 keys).  Like the reference
-  it rounds P to bf16 before P.V.
-- f32: ``csrc/flash_attn.cu``, f32 FMAs on the CUDA cores (64 by 64).
+- bf16: ``csrc/flash_attn_wgmma.cu``, 128 queries by 128 keys.  Like the
+  reference it rounds P to bf16 before P.V.
+- f32: ``csrc/flash_attn_tf32.cu``, 3xTF32: each operand x is split into
+  TF32 parts hi = rna(x) and lo = rna(x - hi) and each product is
+  hi.hi + hi.lo + lo.hi, 128 queries by 32 keys.  A pre-pass kernel
+  (:func:`tf32_split`, plain version :func:`tf32_split_plain`) writes the
+  planes q_hi, q_lo, k_hi, k_lo and V transposed to vt_hi, vt_lo
+  [BH, hd, Sk padded to KEY_TILE], with the keys of every group of 8 in
+  the order ``KEY_PERM``; the main kernel splits P itself.
 
 ``flash_attention_fwd`` takes CPU tensors to the plain version
 (:func:`flash_plain`, a naive causal softmax in f32) and CUDA tensors to
@@ -30,6 +36,7 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = _build.LaunchCounter("flash_attn")
+SPLIT_LAUNCHES = _build.LaunchCounter("flash_tf32_split")
 
 BQ = 128
 BK = 512
@@ -38,10 +45,83 @@ HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # score bytes the plain version holds at once (bounds its memory)
 PLAIN_SCORE_BYTES = 1 << 30
-# gridDim.y of the f32 kernel's launch
-MAX_BH = 65535
 # unit roundoff of bf16 (8 significant bits, round to nearest)
 BF16_U = 2.0 ** -8
+# keys per tile of the f32 kernel: vT's key axis is padded to a multiple
+KEY_TILE = 32
+# vT slot s of each group of 8 keys holds key KEY_PERM[s]: the f32 kernel
+# feeds its S accumulator (keys 2t, 2t + 1 of a thread) to P.V as the
+# TF32 A fragment (k slots t, t + 4) without a shuffle
+KEY_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+# TF32 keeps the top 10 of f32's 23 stored significand bits
+TF32_DROP_BITS = 13
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 to nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32``: integer arithmetic on the bits (a carry runs
+    into the exponent), so it runs on CPU torch.  Infinities and NaNs
+    pass unchanged."""
+    bits = x.contiguous().view(torch.int32)
+    half = 1 << (TF32_DROP_BITS - 1)
+    rounded = (bits + half) & -(1 << TF32_DROP_BITS)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    return torch.where(finite, rounded, bits).view(torch.float32)
+
+
+def _padded_keys(sk: int) -> int:
+    return -(-sk // KEY_TILE) * KEY_TILE
+
+
+def _hi_lo(x: torch.Tensor):
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)       # x - hi is exact in f32
+
+
+def tf32_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Plain version of the f32 kernel's pre-pass, on the tensors' own
+    device: ``(q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo)``, hi = rna(x) and
+    lo = rna(x - hi) in TF32; q and k keep their layout, v goes to vT
+    [BH, hd, sk_pad] with sk_pad = Sk rounded up to KEY_TILE, zeros past
+    Sk, and within every group of 8 keys slot s holding key
+    ``KEY_PERM[s]``."""
+    BH, Sk, hd = v.shape
+    sk_pad = _padded_keys(Sk)
+    vp = torch.zeros((BH, sk_pad, hd), dtype=torch.float32, device=v.device)
+    vp[:, :Sk] = v
+    perm = torch.tensor(KEY_PERM, device=v.device)
+    vt = vp.view(BH, sk_pad // 8, 8, hd)[:, :, perm] \
+        .reshape(BH, sk_pad, hd).transpose(1, 2).contiguous()
+    return (*_hi_lo(q.float()), *_hi_lo(k.float()), *_hi_lo(vt))
+
+
+def tf32_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The f32 kernel's pre-pass: the six planes of
+    :func:`tf32_split_plain`.  CPU tensors take the plain version; CUDA
+    tensors (f32, contiguous, on 16-byte boundaries; shapes as
+    :func:`flash_attention_fwd` checks them) launch the kernel on the
+    current stream, without synchronising."""
+    if q.device.type == "cpu":
+        return tf32_split_plain(q, k, v)
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be contiguous f32 on 16-byte "
+                         "boundaries")
+    BH, S, hd = q.shape
+    Sk = k.shape[1]
+    sk_pad = _padded_keys(Sk)
+    planes = (*(torch.empty_like(q) for _ in range(2)),
+              *(torch.empty_like(k) for _ in range(2)),
+              *(torch.empty((BH, hd, sk_pad), dtype=torch.float32,
+                            device=q.device) for _ in range(2)))
+    lib = _build.library()
+    err = lib.cdll.flash_tf32_split_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *(p.data_ptr() for p in planes), BH, S, Sk, sk_pad, hd,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    lib.check(err, "flash_tf32_split")
+    SPLIT_LAUNCHES.inc((BH, S, Sk, hd), q.nbytes + k.nbytes + v.nbytes)
+    return planes
 
 
 def flash_plain(q: torch.Tensor, k: torch.Tensor,
@@ -89,8 +169,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv heads).  f32 or bf16, hd 32, 64 or 128.  Returns [BH, S, hd] in
     q's dtype.  CPU tensors take the plain version; CUDA tensors launch
     the kernel of their dtype on the current stream, without
-    synchronising (bf16 tensors must start on 16-byte boundaries, as TMA
-    reads them)."""
+    synchronising (tensors must start on 16-byte boundaries, as TMA and
+    16-byte loads read them).  In f32 that is two launches, the pre-pass
+    (:func:`tf32_split`) and the main kernel, counted once in
+    ``LAUNCHES``."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"q must be [BH, S, hd] and k, v [BH, Sk, hd]; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -119,20 +201,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must lie on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if BH > MAX_BH:
-        raise ValueError(f"at most {MAX_BH} rows of BH per launch, got {BH}")
-    bf16 = q.dtype == torch.bfloat16
-    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("bf16 q, k and v must start on 16-byte boundaries")
-    stream = torch.cuda.current_stream(q.device)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
     if BH == 0 or S == 0:
         return out
     lib = _build.library()
-    launch = lib.cdll.flash_attn_wgmma_launch if bf16 \
-        else lib.cdll.flash_attn_fwd_launch
-    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 BH, S, Sk, hd, hd ** -0.5, stream.cuda_stream)
+    if q.dtype == torch.bfloat16:
+        err = lib.cdll.flash_attn_wgmma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S,
+            Sk, hd, hd ** -0.5, stream)
+    else:
+        planes = tf32_split(q, k, v)
+        err = lib.cdll.flash_attn_tf32_launch(
+            *(p.data_ptr() for p in planes), out.data_ptr(), BH, S, Sk,
+            planes[4].shape[2], hd, hd ** -0.5, stream)
     lib.check(err, "flash_attn")
     LAUNCHES.inc((BH, S, Sk, hd), q.nbytes + k.nbytes + v.nbytes)
     return out

@@ -1,7 +1,8 @@
 """The port's CUDA kernels and engine on the card: each hashing kernel
 against its plain version and ``hashlib`` or ``_cpu_gear``, bit for bit,
 flash attention against its plain version (f32 within the JAX package's
-2e-5, bf16 within the bound derived from its rounding), and two managers
+2e-5, bf16 within the bound derived from its rounding), the f32 flash
+kernel's TF32 pre-pass against its plain version bit for bit, and two managers
 sharing one card through their own streams.  Every test here needs an
 NVIDIA GPU and ``nvcc``; without them it skips.  Run on a GPU machine with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py``
@@ -187,3 +188,31 @@ def test_flash_kernel_matches_plain(cuda, S, Sk, hd, bq, bk, dtype):
     if Sk > 64:
         lost = _plain_dropping(q, k, v, 64, 128)
         assert not bool(((lost - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("S,Sk,hd", [(256, 256, 64), (320, 192, 128),
+                                     (192, 448, 64), (704, 320, 32),
+                                     (64, 5, 32)])
+def test_tf32_split_kernel_matches_plain(cuda, S, Sk, hd):
+    """The f32 kernel's pre-pass bit for bit against its plain version:
+    the TF32 hi and lo planes of q and k, and vT with its key permutation
+    and zeros past Sk (ragged Sk included)."""
+    g = torch.Generator(device=cuda).manual_seed(S + Sk + hd)
+    q, k, v = (torch.randn((3, n, hd), generator=g, device=cuda)
+               for n in (S, Sk, Sk))
+    before = flash_attn.SPLIT_LAUNCHES.value
+    got = flash_attn.tf32_split(q, k, v)
+    assert flash_attn.SPLIT_LAUNCHES.value == before + 1
+    want = flash_attn.tf32_split_plain(q, k, v)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _equal(a, b)
+
+
+def test_flash_f32_launches_the_split_and_the_kernel_once(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((2, 256, 128), generator=g, device=cuda)
+               for _ in range(3))
+    split, main = flash_attn.SPLIT_LAUNCHES.value, flash_attn.LAUNCHES.value
+    flash_attn.flash_attention_fwd(q, k, v, bq=128, bk=128)
+    assert flash_attn.SPLIT_LAUNCHES.value == split + 1
+    assert flash_attn.LAUNCHES.value == main + 1
