@@ -8,15 +8,20 @@ each printing its results:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
 2. build: build time, what ``ptxas -v`` reports (registers, spills,
-   warnings), each kernel's SASS opcode mix (``cuobjdump -sass``) with the
-   tensor-core (``HGMMA``) count of the bf16 and f32 flash kernels, and a
-   one-thread clock probe of the MD5 round's dependent chain;
+   warnings; a spill in the sliding kernel fails the run), each kernel's
+   SASS opcode mix (``cuobjdump -sass``) with its ALU-pipe and FMA-pipe
+   (IMAD, VIADD) counts and the tensor-core (``HGMMA``) count of the bf16,
+   f16 and f32 flash kernels, and a one-thread clock probe of the MD5
+   round's dependent chain;
 3. every kernel against its plain PyTorch version on the card: the
    hashing kernels bit for bit (and against ``hashlib``, or the CPU gear
-   baseline at positions >= 31, and a sharded gear plan reassembled),
-   flash attention within 2e-5 in f32 and within the bound derived from
-   its rounding in bf16, which the plain version with one key tile
-   dropped must fail, and the f32 kernel's TF32 pre-pass bit for bit;
+   baseline at positions >= 31, and a sharded gear plan reassembled; the
+   sliding kernel also at its edges: rows around its tile, shorter than
+   a window, of one word, three per launch, every window at every
+   stride), flash attention within 2e-5 in f32 (also on rows of 16384
+   and 32768 keys) and within the bound derived from its rounding in
+   bf16 and f16, which the plain version with one key tile dropped must
+   fail, and the f32 kernel's TF32 pre-pass bit for bit;
 4. the main path, the SAI content-addressable write/read path: a series
    of four 256 MiB checkpoint images written with ``write_async`` and read
    back with verification, under fixed 1 MiB blocks (``ca='fixed'``),
@@ -37,13 +42,16 @@ each printing its results:
 6. each kernel at its path's shapes (the sliding kernel at both of its
    strides, gear on one image and on phase 4's largest launch, flash
    attention through its own entry point at llama3-8b's widths and
-   context in bf16 and f32): its time with CUDA events beside its bound
-   (for ``md5_direct`` also the bound of its serial chain, from the
-   probe), its plain version's time and result on the same inputs, and
-   for flash attention PyTorch's ``scaled_dot_product_attention`` timed
-   beside it and the achieved TFLOP/s; the f32 path's TF32 pre-pass is
-   also timed alone, and the f32 bound is that of 3xTF32 on the tensor
-   cores, the cheaper of the two ways to f32 accuracy.
+   context in bf16, f16 and f32): its time with CUDA events beside its
+   bound (for ``md5_direct`` also the bound of its serial chain, from the
+   probe; for the sliding kernel the count of only the rounds digest word
+   a needs, beside the full count, and the time its SASS needs on the ALU
+   and on the FMA pipe), its plain version's time and result on the same
+   inputs, and for flash attention PyTorch's
+   ``scaled_dot_product_attention`` timed beside it and the achieved
+   TFLOP/s; the f32 path's TF32 pre-pass is also timed alone, and the f32
+   bound is that of 3xTF32 on the tensor cores, the cheaper of the two
+   ways to f32 accuracy.
 
 Any failed check raises, so the script exits non-zero.  The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -97,21 +105,32 @@ INT_LANES_PER_SM = 128
 # ALU-only instructions per 64-byte MD5 compression: per round one LOP3
 # (the round's boolean function) and one funnel shift (the rotation)
 ALU_ONLY_PER_COMPRESSION = 64 * 2
+# rounds of a compression whose result reaches digest word a: a is a0 plus
+# the b that round 60 (0-based) writes, so rounds 61-63 are dead for a
+# sliding window, which keeps only word a
+LIVE_ROUNDS = 61
 # SASS opcodes of the ALU pipe and of the FMA pipe counted in phase 2
 ALU_OPCODES = ("IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT",
                "IABS", "IMNMX", "MOV")
-FMA_OPCODES = ("IMAD",)
+# VIADD (an add) issues beside IMAD, not on the ALU pipe: the sliding
+# kernel's times in tools/sliding_ablation.py fit only that
+FMA_OPCODES = ("IMAD", "VIADD")
 # kernel name -> substrings of its SASS function name, mangled or not
-# (the sliding kernel at the main path's window of 12 words)
+# (the sliding kernel at the main path's window of 12 words, stride 4 and
+# stride 1)
 SASS_FUNCTIONS = {"md5_direct": ("md5_direct_kernel",),
-                  "sliding_md5": ("sliding_md5_kernelILi12E",
-                                  "sliding_md5_kernel<12>"),
+                  "sliding_md5": ("sliding_md5_kernelILi12ELi4EE",
+                                  "sliding_md5_kernel<12, 4>"),
+                  "sliding_md5 stride 1": ("sliding_md5_kernelILi12ELi1EE",
+                                           "sliding_md5_kernel<12, 1>"),
                   "gear": ("gear_kernel",),
                   "flash_attn f32 hd128": ("flash_tf32_kernelILi128E",
                                            "flash_tf32_kernel<128>"),
                   "flash_tf32_split": ("tf32_split_kernel",),
-                  "flash_attn bf16 hd128": ("flash_wgmma_kernelILi128E",
-                                            "flash_wgmma_kernel<128>")}
+                  "flash_attn bf16 hd128": ("flash_wgmma_kernelILi128ELb0E",
+                                            "flash_wgmma_kernel<128, false>"),
+                  "flash_attn f16 hd128": ("flash_wgmma_kernelILi128ELb1E",
+                                           "flash_wgmma_kernel<128, true>")}
 # SASS opcode of a warpgroup tensor-core product (wgmma)
 TENSOR_OPCODE = "HGMMA"
 # compressions of one message of md5_direct's launch in phase 6 (1 MiB +
@@ -135,6 +154,34 @@ def ops_per_compression(const_words: int = 0, final_adds: int = 4) -> int:
     funnel shift and one add; then the final adds.  Each of the
     ``const_words`` constant message words is read by 4 rounds."""
     return 64 * 5 - 4 * const_words + final_adds
+
+
+def md5_g(i: int) -> int:
+    """Message word read by MD5 round i (0-based)."""
+    return i if i < 16 else (5 * i + 1) % 16 if i < 32 \
+        else (3 * i + 5) % 16 if i < 48 else (7 * i) % 16
+
+
+def sliding_ops(w_words: int):
+    """Integer instructions per sliding window of ``w_words`` words, the
+    least Hopper can issue for digest word a alone: ``(total,
+    alu_only)``.  Only the LIVE_ROUNDS rounds that reach word a count.
+    Each is one LOP3, two adds for f + a + K + M (one where message word
+    M is a constant: the 0x80 padding, zeros or the length) and b +
+    rotl(f, s) as one LEA.HI of f funnel-shifted onto itself (ptxas's
+    own form); round 0's boolean function and a + K are constants of the
+    initial value, and so is a + K in rounds 1-3; one final add, a0 + a.
+    ALU-only: each live round's LOP3 but round 0's (b + rotl(f, s) also
+    has an FMA-pipe form, lo(f 2^s) + (hi(f 2^s) + b) as two IMADs)."""
+    total = 0
+    for i in range(LIVE_ROUNDS):
+        const_m = md5_g(i) >= w_words
+        total += 4 - const_m
+        if i == 0:
+            total -= 2
+        elif i < 4 and not const_m:
+            total -= 1
+    return total + 1, LIVE_ROUNDS - 1
 
 
 def check(cond, what: str):
@@ -188,17 +235,22 @@ def max_abs_err(a, b) -> int:
 
 
 # f32 flash against the plain version: the JAX package's 2e-5 (atol and
-# rtol), for sums taken in another order.  bf16 rounds P to bf16 before
-# P.V (as the reference does) and the output to bf16, so it is held per
-# element to flash_attn.flash_bf16_bound, derived from those two
-# roundings: |got - want| <= 2**-8 |want| + 2**-8 (P |V|) / l + 3e-5.
+# rtol), for sums taken in another order.  bf16 and f16 round P to the type
+# before P.V (as the reference does) and the output to the type, so they
+# are held per element to flash_attn.flash_bf16_bound, derived from those
+# two roundings: |got - want| <= u |want| + u (P |V|) / l + 3e-5, with u =
+# 2**-8 for bf16 and 2**-11 for f16.
 F32_TOL = 2e-5
+# f32 flash rows longer than phase 6's, held to F32_TOL: the 3xTF32
+# kernel's O is one chain of tensor-core products over all key tiles
+LONG_ROWS = (16384, 32768)
 
 
 def flash_close(got, q, k, v, want, what: str) -> float:
     """Check a flash output against the plain version's f32 result
     ``want`` on the same inputs, at 2e-5 in f32 and within the derived
-    per-element bound in bf16; return the largest absolute error."""
+    per-element bound in bf16 and f16; return the largest absolute
+    error."""
     import torch
     from repro_torch.kernels import flash_attn
     g = got.float()
@@ -209,8 +261,9 @@ def flash_close(got, q, k, v, want, what: str) -> float:
               f"{what}: within {F32_TOL} of the plain version")
     else:
         bound = flash_attn.flash_bf16_bound(q, k, v, want)
-        check(bool((err <= bound).all()), f"{what}: within the bf16 bound "
-              f"(worst error {float((err / bound).max()):.3f} of it)")
+        check(bool((err <= bound).all()), f"{what}: within the "
+              f"{str(got.dtype)[6:]} bound (worst error "
+              f"{float((err / bound).max()):.3f} of it)")
     return float(err.max())
 
 
@@ -319,10 +372,16 @@ def phase_build(torch):
     lib = _build.library()
     print(f"built {lib.path} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.seconds:.2f} s)")
+    source = None
     for line in lib.log.splitlines():
+        if line.startswith("=="):
+            source = line[2:].strip()
         if line.startswith("==") or "registers" in line \
                 or "spill" in line or "arning" in line:
             print("  " + line.strip())
+        if source == "sliding_md5.cu" and "spill" in line:
+            check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"no spill in the sliding kernel: {line.strip()}")
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
     mix = sass_mix(str(lib.path), cuobjdump)
@@ -334,7 +393,8 @@ def phase_build(torch):
         pipes[name] = (sum(m[op] for op in ALU_OPCODES),
                        sum(m[op] for op in FMA_OPCODES))
         print(f"SASS {name}: {sum(m.values())} instructions, ALU pipe "
-              f"{pipes[name][0]}, IMAD (FMA pipe) {pipes[name][1]}, "
+              f"{pipes[name][0]}, IMAD and VIADD (FMA pipe) "
+              f"{pipes[name][1]}, "
               f"{TENSOR_OPCODE} (tensor cores) {m[TENSOR_OPCODE]}; "
               f"{dict(m.most_common(12))}")
         if name.startswith("flash_attn"):
@@ -361,7 +421,8 @@ def phase_kernels(torch, np, dev):
     from repro_torch.kernels import flash_attn, gear, md5, ops, sliding_md5
     rng = np.random.default_rng(1)
     errs = {"md5_direct": 0, "sliding_md5": 0, "gear": 0, "flash_attn": 0.0,
-            "flash_attn_f32": 0.0, "flash_tf32_split": 0.0}
+            "flash_attn_f16": 0.0, "flash_attn_f32": 0.0,
+            "flash_tf32_split": 0.0}
     # md5: ragged lens incl. lens == W, one word and zero words; B not a
     # multiple of 32; rows up to 64 KiB
     for B, W in [(45, 16384), (33, 1), (64, 257), (1, 4096)]:
@@ -405,6 +466,43 @@ def phase_kernels(torch, np, dev):
                       f"sliding == hashlib at offset {o}")
             print(f"sliding_md5 16 MiB stride {stride} window {window}: "
                   f"bit-exact vs plain and hashlib")
+    # the kernel's edges: rows around its tile T (T - 1, T, T + 1 and
+    # T + w_words words), shorter than a window and of one word, three
+    # rows of distinct content per launch, every window at every stride
+    T = sliding_md5.TILE_WORDS
+    n_edge = 0
+    for stride in (1, 2, 4):
+        R = 4 // stride
+        for ww in range(1, 14):
+            for L in (T - 1, T, T + 1, T + ww, max(ww - 1, 1), 1):
+                data = rng.integers(0, 2 ** 32, (3, L), dtype=np.uint32)
+                words = torch.from_numpy(data).to(dev)
+                got = sliding_md5.sliding_md5_words(words, ww, stride)
+                torch.cuda.synchronize()
+                want = sliding_md5.sliding_plain(words, ww, stride)
+                check(got.shape == (3, R, L) and words_equal(got, want),
+                      f"sliding kernel == plain, [3, {L}] stride {stride} "
+                      f"window {4 * ww}")
+                errs["sliding_md5"] = max(errs["sliding_md5"],
+                                          max_abs_err(got, want))
+                host = got.cpu().numpy()
+                for b in range(3):
+                    row = data[b].astype("<u4").view(np.uint8)
+                    for q in {0, L // 2, L - 1, max(L - ww, 0)}:
+                        for i in range(R):
+                            b0 = 4 * q + i * stride
+                            chunk = row[b0:b0 + 4 * ww].tobytes()
+                            chunk += bytes(4 * ww - len(chunk))
+                            ref = hashlib.md5(chunk).digest()
+                            check(int(host[b, i, q])
+                                  == int.from_bytes(ref[:4], "little"),
+                                  f"sliding == hashlib, [3, {L}] row {b} "
+                                  f"phase {i} offset {q} window {4 * ww}")
+                n_edge += 1
+    print(f"sliding_md5 edges: {n_edge} launches of 3 rows (L = T - 1, T, "
+          f"T + 1, T + w_words, < w_words, 1; T = {T}), every window of "
+          f"1-13 words at strides 1, 2, 4: bit-exact vs plain and hashlib "
+          f"at sampled offsets")
     short = ops.sliding_window_hash(b"shorter than a window", 48, 4,
                                     device=dev)
     check(short.shape == (0,), "input shorter than a window hashes empty")
@@ -439,10 +537,11 @@ def phase_kernels(torch, np, dev):
           "sharded gear plan reassembles the unsharded output")
     print(f"gear shard plan {plan}: reassembled == unsharded")
     # flash: hd 32, 64 and 128, S == Sk, both Sk != S and a ragged pair,
-    # in f32 and bf16; the plain version runs on the same (rounded) inputs.
-    # In bf16 the plain version with one key tile dropped must fail the
-    # bound, so a lost or doubled tile cannot pass it.  In f32 the TF32
-    # pre-pass is checked bit for bit against its plain version.
+    # in f32, bf16 and f16; the plain version runs on the same (rounded)
+    # inputs.  In bf16 and f16 the plain version with one key tile dropped
+    # must fail the bound, so a lost or doubled tile cannot pass it.  In
+    # f32 the TF32 pre-pass is checked bit for bit against its plain
+    # version.
     gen = torch.Generator(device=dev).manual_seed(5)
     for BH, S, Sk, hd in [(4, 1024, 1024, 64), (4, 1024, 1024, 128),
                           (4, 512, 1536, 128), (4, 1536, 512, 64),
@@ -450,7 +549,8 @@ def phase_kernels(torch, np, dev):
         qkv = [torch.randn((BH, n, hd), generator=gen, device=dev)
                for n in (S, Sk, Sk)]
         for dtype, name in ((torch.float32, "flash_attn_f32"),
-                            (torch.bfloat16, "flash_attn")):
+                            (torch.bfloat16, "flash_attn"),
+                            (torch.float16, "flash_attn_f16")):
             q, k, v = (x.to(dtype) for x in qkv)
             got = flash_attn.flash_attention_fwd(q, k, v, bq=64, bk=64)
             torch.cuda.synchronize()
@@ -463,17 +563,33 @@ def phase_kernels(torch, np, dev):
             err = flash_close(got, q, k, v, want, what)
             errs[name] = max(errs[name], err)
             line = f"{what}: max abs err {err:.3g} vs plain"
-            if dtype == torch.bfloat16:
+            if dtype != torch.float32:
                 bound = flash_attn.flash_bf16_bound(q, k, v, want)
                 share = float(((got.float() - want).abs() / bound).max())
                 lost = (plain_dropping(q, k, v, 128, 256) - want).abs()
                 check(not bool((lost <= bound).all()),
                       f"{what}: the plain version without keys 128-255 "
-                      f"fails the bf16 bound")
+                      f"fails the {str(dtype)[6:]} bound")
                 line += (f", worst {share:.3f} of the bound; keys 128-255 "
                          f"dropped: {float((lost / bound).max()):.1f} x the "
                          f"bound")
             print(line)
+    # f32 on rows longer than phase 6's, against the plain version in full
+    # f32 (TF32 off), at the unchanged 2e-5
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the plain version's f32 products run without TF32")
+    for S in LONG_ROWS:
+        q, k, v = (torch.randn((1, S, LLAMA_HEAD_DIM), generator=gen,
+                               device=dev) for _ in range(3))
+        got = flash_attn.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        what = f"flash float32 BH 1 S = Sk = {S} hd {LLAMA_HEAD_DIM}"
+        err = flash_close(got, q, k, v, flash_attn.flash_plain(q, k, v),
+                          what)
+        errs["flash_attn_f32"] = max(errs["flash_attn_f32"], err)
+        print(f"{what}: max abs err {err:.3g} vs plain (check "
+              f"{F32_TOL} atol and rtol)")
+        del q, k, v, got
     return errs
 
 
@@ -796,23 +912,29 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
         return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
                              device=dev, generator=gen).view(torch.uint32)
 
-    def bound(n_comp, ops, nbytes):
+    def bound(n_comp, ops, nbytes, alu_only=ALU_ONLY_PER_COMPRESSION):
         """Least time for ``n_comp`` compressions of ``ops`` integer
         instructions each, at most 128 per SM-clock of which at most 64
-        on the ALU pipe, or for ``nbytes`` at the HBM rate."""
+        on the ALU pipe (``alu_only`` of them can run nowhere else), or
+        for ``nbytes`` at the HBM rate."""
         t_ops = n_comp * max(ops / INT_LANES_PER_SM,
-                             ALU_ONLY_PER_COMPRESSION / ALU_LANES_PER_SM) \
-            / sm_clocks
+                             alu_only / ALU_LANES_PER_SM) / sm_clocks
         t_bytes = nbytes / HBM_BYTES_PER_S
         return max(t_ops, t_bytes) * 1e3, \
             "operations" if t_ops >= t_bytes else "bytes"
 
-    def alu_ms(name, n_pass):
-        """Time the ALU pipe alone needs for ``n_pass`` passes through
-        the kernel's compiled SASS (one pass per message chunk or per
-        window), were every pass to issue all its ALU instructions."""
-        return n_pass * pipes[name][0] / (ALU_LANES_PER_SM * sm_clocks) \
-            * 1e3
+    def pipe_ms(name, n_pass):
+        """Times the ALU pipe and the FMA pipe alone need for ``n_pass``
+        passes through the kernel's compiled SASS (for the sliding kernel
+        one pass per thread and phase: four windows), were every pass to
+        issue all of the function's ALU and FMA-pipe instructions: an
+        upper estimate, as the count is static and takes in code a pass
+        skips (the sliding kernel's bounds-checked path for a row's last
+        tile)."""
+        return tuple(n_pass * n / (lanes * sm_clocks) * 1e3 for n, lanes
+                     in zip(pipes[name], (ALU_LANES_PER_SM,
+                                          INT_LANES_PER_SM
+                                          - ALU_LANES_PER_SM)))
 
     def against_plain(name, got, plain):
         want = {}
@@ -863,7 +985,13 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
     # the kernels line) and at stride 1, each against the plain version
     L, ww = IMAGE_BYTES // 4, 12
     swords = rand_words(1, L)
-    ops = ops_per_compression(16 - ww, 1)
+    ops, alu_only = sliding_ops(ww)
+    full = ops_per_compression(16 - ww, 1)
+    print(f"sliding_md5 bound: {ops} integer instructions per window "
+          f"({LIVE_ROUNDS} live rounds, b + rotl(f, s) as one LEA.HI, "
+          f"initial-value constants folded; ALU-only {alu_only}), "
+          f"recounted from {full} (64 rounds, the rotation and its add "
+          f"apart; ALU-only {ALU_ONLY_PER_COMPRESSION})")
     for stride in (4, 1):
         n_win = L * (4 // stride)
         ms = time_cuda(
@@ -873,14 +1001,21 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
             "sliding_md5", got,
             lambda: sliding_md5.sliding_plain(swords, ww, stride))
         del got
-        b_ms, b_by = bound(n_win, ops, L * 4 + n_win * 4)
+        nbytes = L * 4 + n_win * 4
+        b_ms, b_by = bound(n_win, ops, nbytes, alu_only)
+        old_ms, _ = bound(n_win, full, nbytes)
+        alu, fma = pipe_ms("sliding_md5" if stride == 4
+                           else "sliding_md5 stride 1", n_win // 4)
         shape = (f"[1, {L}] uint32 ({IMAGE_BYTES // MiB} MiB), window 48, "
                  f"stride {stride}")
         print(f"sliding_md5: {ms:.3f} ms at {shape}; bound {b_ms:.4f} ms "
-              f"({b_by}, {ops} integer instructions per window); ALU pipe "
-              f"alone for this SASS {alu_ms('sliding_md5', n_win):.4f} ms; "
-              f"plain {plain_ms:.1f} ms, bit-exact; library: none (no "
-              f"PyTorch call computes MD5)")
+              f"({b_by}, {ops} integer instructions per window), "
+              f"{b_ms / ms:.1%} of it ({old_ms:.4f} ms at {full}: "
+              f"{old_ms / ms:.1%}); its SASS, counted statically, needs at "
+              f"most {alu:.4f} ms on the ALU pipe and {fma:.4f} ms on the "
+              f"FMA pipe; plain "
+              f"{plain_ms:.1f} ms, bit-exact; library: none (no PyTorch "
+              f"call computes MD5)")
         if stride == 4:
             out["sliding_md5"] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -926,6 +1061,7 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
     flops = 4 * BH * hd * sum(min(i + 1, S) for i in range(S))
     launches = {}
     for dtype, name in ((torch.bfloat16, "flash_attn"),
+                        (torch.float16, "flash_attn_f16"),
                         (torch.float32, "flash_attn_f32")):
         q, k, v = (t.to(dtype) for t in (q32, k32, v32))
         f32 = dtype == torch.float32
@@ -967,7 +1103,7 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
                    f"FMAs at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
                    f"{max(t_fma, t_bytes) * 1e3:.4f} ms")
         else:
-            t_ops = flops / BF16_FLOP_PER_S
+            t_ops = flops / BF16_FLOP_PER_S     # bf16 and f16 alike
             how = f"{flops:.4g} FLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s"
         b_ms = max(t_ops, t_bytes) * 1e3
         b_by = "operations" if t_ops >= t_bytes else "bytes"
@@ -1022,6 +1158,9 @@ def main() -> int:
             ("gear", "gear", "src/repro_torch/kernels/csrc/gear.cu",
              "src/repro/kernels/gear.py:134"),
             ("flash_attn", "flash_attn",
+             "src/repro_torch/kernels/csrc/flash_attn_wgmma.cu",
+             "src/repro/kernels/flash_attn.py:74"),
+            ("flash_attn_f16", "flash_attn_f16",
              "src/repro_torch/kernels/csrc/flash_attn_wgmma.cu",
              "src/repro/kernels/flash_attn.py:74"),
             ("flash_attn_f32", "flash_attn_f32",

@@ -44,6 +44,8 @@ SIGNATURES = {
     "flash_attn_wgmma_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                                 _c_int, _c_int, _c_int, _c_int,
                                 ctypes.c_float, _c_void_p],
+    "flash_attn_wgmma_f16_launch": [_c_void_p] * 4 + [_c_int] * 4
+                                   + [ctypes.c_float, _c_void_p],
     "md5_chain_probe_launch": [_c_void_p, _c_ll, _c_int, _c_void_p],
 }
 

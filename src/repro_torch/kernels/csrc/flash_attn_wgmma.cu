@@ -1,13 +1,15 @@
-// Causal flash-attention forward in bf16 on Hopper's tensor cores: TMA
-// loads into a shared-memory ring, wgmma for both products.
+// Causal flash-attention forward in bf16 or f16 on Hopper's tensor cores:
+// TMA loads into a shared-memory ring, wgmma for both products.
 //
-// Replaces, for bf16, the TPU kernel flash_attention_fwd (src/repro/
-// kernels/flash_attn.py, _flash_kernel), and computes its function: q
-// [BH, S, hd], k and v [BH, Sk, hd] in bf16; scores (q . k) * hd^-0.5
-// accumulated in f32; mask k_pos <= q_pos on absolute positions (aligned
-// at the start, also when Sk != S); an online softmax in f32; P rounded to
-// bf16 before P.V, as the reference casts it to v's dtype; the output
-// acc / l (l summed from the f32 P) rounded to bf16.  The f32 path is
+// Replaces, for bf16 and f16, the TPU kernel flash_attention_fwd
+// (src/repro/kernels/flash_attn.py, _flash_kernel), and computes its
+// function: q [BH, S, hd], k and v [BH, Sk, hd] in bf16 (or f16);
+// scores (q . k) * hd^-0.5 accumulated in f32; mask k_pos <= q_pos on
+// absolute positions (aligned at the start, also when Sk != S); an online
+// softmax in f32; P rounded to the input type before P.V, as the reference
+// casts it to v's dtype; the output acc / l (l summed from the f32 P)
+// rounded to the input type.  f16 has bf16's layout and instructions with
+// .f16 in place of .bf16 (template flag F16).  The f32 path is
 // flash_attn_tf32.cu.
 //
 // What bounds it on this card: at S = Sk = 8192, hd = 128 the causal
@@ -45,8 +47,9 @@
 //   - Masks are applied only on tiles that cross the diagonal or the Sk
 //     edge; rows past S are computed on zeros and never stored.
 //
-// Interface: q, k, v, o device pointers (contiguous, 16-byte aligned, bf16),
-// bh, s, sk, hd in {32, 64, 128}, scale.  Grid (BH, ceil(S / 128)), 256
+// Interface (flash_attn_wgmma_launch for bf16, flash_attn_wgmma_f16_launch
+// for f16): q, k, v, o device pointers (contiguous, 16-byte aligned), bh,
+// s, sk, hd in {32, 64, 128}, scale.  Grid (BH, ceil(S / 128)), 256
 // threads, up to 226 KB of dynamic shared memory.  Launches on the given
 // stream and does not synchronise; returns cudaGetLastError(), or
 // cudaErrorInvalidValue for an unsupported hd, a misaligned pointer or
@@ -55,6 +58,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums only: no driver-API link
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -202,123 +206,159 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two f32 rounded to nearest into one register of bf16 or f16 (lo first)
+template <bool F16>
+__device__ __forceinline__ uint32_t pack_half(float lo, float hi) {
+  if constexpr (F16) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
-// wgmma wrappers: D (f32, m64nN) += A (bf16, m64k16) * B (bf16, k16nN).
+// wgmma wrappers: D (f32, m64nN) += A (T, m64k16) * B (T, k16nN), T bf16
+// or f16 (one layout: only the type in the instruction differs).
 // The accumulator fragment of thread (warp w, lane l) holds row
 // 16 w + l / 4 (+ 8 for elements 4 j + 2, 4 j + 3) and columns
 // 8 j + 2 (l % 4) + {0, 1}.  ss: A and B from shared memory, both K-major,
 // D overwritten when acc == 0.  rs: A from registers (the m16k16 fragment
 // of mma.sync), B MN-major (transpose bit), D accumulated.
+#define REPRO_WGMMA_SS_N128(T)                                    \
+  asm volatile(                                                   \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." T "." T " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                          \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                    \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                  \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                  \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                  \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                  \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                  \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                    \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),           \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),           \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),         \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),       \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),       \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),       \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),       \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),       \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),       \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])        \
+      : "l"(da), "l"(db), "r"(acc))
+template <bool F16>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                              uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
+  if constexpr (F16) {
+    REPRO_WGMMA_SS_N128("f16");
+  } else {
+    REPRO_WGMMA_SS_N128("bf16");
+  }
 }
 
+#define REPRO_WGMMA_RS_N32(T)                                    \
+  asm volatile(                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"               \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." T "." T " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                     \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),          \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),          \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),        \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])       \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1))
+template <bool F16>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                              uint32_t a0, uint32_t a1,
                                              uint32_t a2, uint32_t a3,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  if constexpr (F16) {
+    REPRO_WGMMA_RS_N32("f16");
+  } else {
+    REPRO_WGMMA_RS_N32("bf16");
+  }
 }
 
+#define REPRO_WGMMA_RS_N64(T)                                    \
+  asm volatile(                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"               \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." T "." T " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                 \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                   \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),          \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),          \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),        \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),      \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),      \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])       \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1))
+template <bool F16>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              uint32_t a0, uint32_t a1,
                                              uint32_t a2, uint32_t a3,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  if constexpr (F16) {
+    REPRO_WGMMA_RS_N64("f16");
+  } else {
+    REPRO_WGMMA_RS_N64("bf16");
+  }
 }
 
+#define REPRO_WGMMA_RS_N128(T)                                    \
+  asm volatile(                                                   \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." T "." T " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                          \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                    \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                  \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                  \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                  \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                  \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                  \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                    \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),           \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),           \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),         \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),       \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),       \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),       \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),       \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),       \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),       \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])        \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1))
+template <bool F16>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                              uint32_t a0, uint32_t a1,
                                              uint32_t a2, uint32_t a3,
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  if constexpr (F16) {
+    REPRO_WGMMA_RS_N128("f16");
+  } else {
+    REPRO_WGMMA_RS_N128("bf16");
+  }
 }
 
 // A thread's two rows of the online softmax (rows r0 and r0 + 8): the
@@ -331,7 +371,7 @@ struct RowState {
 };
 
 // S = Q K^T of one k/v tile into s (m64n128, k over hd), one wgmma group
-template <int HD>
+template <int HD, bool F16>
 __device__ __forceinline__ void issue_s(float (&s)[kBK / 2], uint32_t sq_wg,
                                         uint32_t sk) {
   using C = Cfg<HD>;
@@ -339,14 +379,14 @@ __device__ __forceinline__ void issue_s(float (&s)[kBK / 2], uint32_t sq_wg,
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t box = kk / C::kKSteps, col = 32 * (kk % C::kKSteps);
-    wgmma_ss_n128(s, kmajor_desc<C>(sq_wg + box * kBQ * C::kRowBytes + col),
+    wgmma_ss_n128<F16>(s, kmajor_desc<C>(sq_wg + box * kBQ * C::kRowBytes + col),
                   kmajor_desc<C>(sk + box * kBK * C::kRowBytes + col), kk > 0);
   }
   wgmma_commit();
 }
 
 // O = O * corr + P V of one k/v tile (k over the tile's keys), one group
-template <int HD>
+template <int HD, bool F16>
 __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
                                          const uint32_t (&p)[kBK / 4],
                                          const RowState& rows, uint32_t sv) {
@@ -363,13 +403,13 @@ __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
   for (int kk = 0; kk < kBK / 16; ++kk) {
     const uint64_t db = mnmajor_desc<C>(sv + kk * 16 * C::kRowBytes);
     if constexpr (HD == 32) {
-      wgmma_rs_n32(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+      wgmma_rs_n32<F16>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                    p[4 * kk + 3], db);
     } else if constexpr (HD == 64) {
-      wgmma_rs_n64(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+      wgmma_rs_n64<F16>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                    p[4 * kk + 3], db);
     } else {
-      wgmma_rs_n128(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+      wgmma_rs_n128<F16>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                     p[4 * kk + 3], db);
     }
   }
@@ -426,12 +466,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2],
   }
 }
 
-// P in bf16: the S fragment of keys 16 kk .. 16 kk + 15 is the A fragment
-// of the P.V k step kk, two adjacent keys per register
+// P in bf16 or f16: the S fragment of keys 16 kk .. 16 kk + 15 is the A
+// fragment of the P.V k step kk, two adjacent keys per register
+template <bool F16>
 __device__ __forceinline__ void pack_p(uint32_t (&p)[kBK / 4],
                                        const float (&s)[kBK / 2]) {
 #pragma unroll
-  for (int i = 0; i < kBK / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  for (int i = 0; i < kBK / 4; ++i)
+    p[i] = pack_half<F16>(s[2 * i], s[2 * i + 1]);
 }
 
 // this warp is done with a K or V tile
@@ -454,12 +496,12 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* map,
              bar);
 }
 
-template <int HD>
+template <int HD, bool F16>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ o, int S, int Sk,
+                       uint16_t* __restrict__ o, int S, int Sk,
                        float scale_log2) {
   using C = Cfg<HD>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -548,20 +590,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   mbar_wait(bar_q, 0);
   mbar_wait(bar_k, 0);
   named_sync(my_turn);
-  issue_s<HD>(s, sq_wg, sk(0));
+  issue_s<HD, F16>(s, sq_wg, sk(0));
   named_arrive(next_turn);
   wgmma_wait<0>();
   fence_regs(s);
   release(bar_kfree, lane);
   softmax_tile(s, rows, 0, masked(0), r0, cq, Sk, scale_log2);
-  pack_p(p, s);
+  pack_p<F16>(p, s);
   for (int t = 1; t < n_tiles; ++t) {
     const int st = t % kStages, pst = (t - 1) % kStages;
     mbar_wait(bar_k + 8 * st, (t / kStages) & 1);
     mbar_wait(bar_v + 8 * pst, ((t - 1) / kStages) & 1);
     named_sync(my_turn);
-    issue_s<HD>(s, sq_wg, sk(t));
-    issue_pv<HD>(acc, p, rows, sv(t - 1));
+    issue_s<HD, F16>(s, sq_wg, sk(t));
+    issue_pv<HD, F16>(acc, p, rows, sv(t - 1));
     named_arrive(next_turn);
     refill(t);
     wgmma_wait<1>();
@@ -572,30 +614,30 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(acc);
     fence_regs(p);
     release(bar_vfree + 8 * pst, lane);
-    pack_p(p, s);
+    pack_p<F16>(p, s);
   }
   const int last = n_tiles - 1;
   mbar_wait(bar_v + 8 * (last % kStages), (last / kStages) & 1);
   named_sync(my_turn);
-  issue_pv<HD>(acc, p, rows, sv(last));
+  issue_pv<HD, F16>(acc, p, rows, sv(last));
   if (wg == 0) named_arrive(next_turn);  // warpgroup 1 issues last
   wgmma_wait<0>();
   fence_regs(acc);
 
-  // o = acc / l in bf16, rows past S dropped
+  // o = acc / l in bf16 or f16, rows past S dropped
   const long long row = static_cast<long long>(bh) * S + r0;
   if (r0 < S) {
     uint32_t* out = reinterpret_cast<uint32_t*>(o + row * HD + cq);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      out[4 * j] = pack_bf16(acc[4 * j] / rows.l[0],
+      out[4 * j] = pack_half<F16>(acc[4 * j] / rows.l[0],
                              acc[4 * j + 1] / rows.l[0]);
   }
   if (r0 + 8 < S) {
     uint32_t* out = reinterpret_cast<uint32_t*>(o + (row + 8) * HD + cq);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      out[4 * j] = pack_bf16(acc[4 * j + 2] / rows.l[1],
+      out[4 * j] = pack_half<F16>(acc[4 * j + 2] / rows.l[1],
                              acc[4 * j + 3] / rows.l[1]);
   }
 }
@@ -627,9 +669,10 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// rank-3 map over [bh, rows, hd] bf16; boxes of 128 rows by up to 64
-// columns, swizzled as wide as a box row, zeros outside the tensor
-int make_map(CUtensorMap* map, const void* ptr, int bh, int rows, int hd) {
+// rank-3 map over [bh, rows, hd] bf16 or f16; boxes of 128 rows by up to
+// 64 columns, swizzled as wide as a box row, zeros outside the tensor
+int make_map(CUtensorMap* map, const void* ptr, int bh, int rows, int hd,
+             bool f16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t box_cols = hd < 64 ? hd : 64;
@@ -641,39 +684,38 @@ int make_map(CUtensorMap* map, const void* ptr, int bh, int rows, int hd) {
   const cuuint32_t box[3] = {box_cols, kBQ, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map,
+      f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
       box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int HD>
+template <int HD, bool F16>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int s, int sk, float scale, cudaStream_t stream) {
   static_assert(kBQ == kBK, "one box height serves q and k/v maps");
   CUtensorMap mq, mk, mv;
-  int err = make_map(&mq, q, bh, s, HD);
-  if (!err) err = make_map(&mk, k, bh, sk, HD);
-  if (!err) err = make_map(&mv, v, bh, sk, HD);
+  int err = make_map(&mq, q, bh, s, HD, F16);
+  if (!err) err = make_map(&mk, k, bh, sk, HD, F16);
+  if (!err) err = make_map(&mv, v, bh, sk, HD, F16);
   if (err) return err;
-  auto kernel = flash_wgmma_kernel<HD>;
+  auto kernel = flash_wgmma_kernel<HD, F16>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<HD>::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>(bh),
                   static_cast<unsigned>((s + kBQ - 1) / kBQ));
   kernel<<<grid, kThreads, Cfg<HD>::kSmem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, sk, scale * kLog2e);
+      mq, mk, mv, static_cast<uint16_t*>(o), s, sk, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int flash_attn_wgmma_launch(const void* q, const void* k,
-                                       const void* v, void* o, int bh, int s,
-                                       int sk, int hd, float scale,
-                                       void* stream) {
+template <bool F16>
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
+             int s, int sk, int hd, float scale, void* stream) {
   if (bh <= 0 || s <= 0 || sk <= 0) return 0;
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
@@ -684,12 +726,28 @@ extern "C" int flash_attn_wgmma_launch(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, o, bh, s, sk, scale, st);
+      return launch<32, F16>(q, k, v, o, bh, s, sk, scale, st);
     case 64:
-      return launch<64>(q, k, v, o, bh, s, sk, scale, st);
+      return launch<64, F16>(q, k, v, o, bh, s, sk, scale, st);
     case 128:
-      return launch<128>(q, k, v, o, bh, s, sk, scale, st);
+      return launch<128, F16>(q, k, v, o, bh, s, sk, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+extern "C" int flash_attn_wgmma_launch(const void* q, const void* k,
+                                       const void* v, void* o, int bh, int s,
+                                       int sk, int hd, float scale,
+                                       void* stream) {
+  return dispatch<false>(q, k, v, o, bh, s, sk, hd, scale, stream);
+}
+
+extern "C" int flash_attn_wgmma_f16_launch(const void* q, const void* k,
+                                           const void* v, void* o, int bh,
+                                           int s, int sk, int hd, float scale,
+                                           void* stream) {
+  return dispatch<true>(q, k, v, o, bh, s, sk, hd, scale, stream);
 }

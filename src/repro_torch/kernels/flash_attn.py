@@ -15,8 +15,9 @@ softmax and skip key tiles wholly above the diagonal; ``bq`` and ``bk``
 are the TPU kernel's VMEM block sizes and remain here only as the shape
 contract:
 
-- bf16: ``csrc/flash_attn_wgmma.cu``, 128 queries by 128 keys.  Like the
-  reference it rounds P to bf16 before P.V.
+- bf16 and f16: ``csrc/flash_attn_wgmma.cu``, 128 queries by 128 keys,
+  one instantiation per type.  Like the reference it rounds P to the
+  input type before P.V.
 - f32: ``csrc/flash_attn_tf32.cu``, 3xTF32: each operand x is split into
   TF32 parts hi = rna(x) and lo = rna(x - hi) and each product is
   hi.hi + hi.lo + lo.hi, 128 queries by 32 keys.  A pre-pass kernel
@@ -25,9 +26,11 @@ contract:
   [BH, hd, Sk padded to KEY_TILE], with the keys of every group of 8 in
   the order ``KEY_PERM``; the main kernel splits P itself.
 
-``flash_attention_fwd`` takes CPU tensors to the plain version
-(:func:`flash_plain`, a naive causal softmax in f32) and CUDA tensors to
-the kernel of their dtype, with no other route.
+``flash_attention_fwd`` takes CPU tensors of any head dim and any
+floating dtype to the plain version (:func:`flash_plain`, a naive causal
+softmax in f32, returned in q's dtype), as the reference computes them,
+and CUDA tensors to the kernel of their dtype, with no other route: a
+CUDA tensor of a head dim or dtype the kernels lack raises.
 """
 from __future__ import annotations
 
@@ -41,12 +44,17 @@ SPLIT_LAUNCHES = _build.LaunchCounter("flash_tf32_split")
 BQ = 128
 BK = 512
 NEG = -1e30
+# what the CUDA kernels take
 HEAD_DIMS = (32, 64, 128)
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # score bytes the plain version holds at once (bounds its memory)
 PLAIN_SCORE_BYTES = 1 << 30
-# unit roundoff of bf16 (8 significant bits, round to nearest)
+# unit roundoff of the 16-bit types (8 and 11 significant bits, round to
+# nearest), and f16's least normal number: below it an f16 value keeps an
+# absolute error of up to HALF_U[f16] * F16_MIN_NORMAL
 BF16_U = 2.0 ** -8
+HALF_U = {torch.bfloat16: BF16_U, torch.float16: 2.0 ** -11}
+F16_MIN_NORMAL = 2.0 ** -14
 # keys per tile of the f32 kernel: vT's key axis is padded to a multiple
 KEY_TILE = 32
 # vT slot s of each group of 8 keys holds key KEY_PERM[s]: the f32 kernel
@@ -146,19 +154,52 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def _floored_weights(q: torch.Tensor, k: torch.Tensor, v_abs: torch.Tensor,
+                     floor: float) -> torch.Tensor:
+    """sum_j max(p_j, floor) |v_j| / l over each row's unmasked keys, with
+    p_j = exp(s_j - max s) and l = sum_j p_j (f32, chunked as
+    :func:`flash_plain`)."""
+    BH, S, hd = q.shape
+    Sk = k.shape[1]
+    mask = torch.arange(Sk, device=q.device)[None, :] \
+        <= torch.arange(S, device=q.device)[:, None]
+    out = torch.empty((BH, S, hd), dtype=torch.float32, device=q.device)
+    step = max(1, PLAIN_SCORE_BYTES // max(S * Sk * 4, 1))
+    for b0 in range(0, BH, step):
+        b1 = min(b0 + step, BH)
+        s = torch.einsum("bqd,bkd->bqk", q[b0:b1].float(),
+                         k[b0:b1].float()) * hd ** -0.5
+        s = torch.where(mask[None], s, NEG)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True)
+        p = torch.where(mask[None], p.clamp_min(floor), 0.0)
+        out[b0:b1] = torch.einsum("bqk,bkd->bqd", p, v_abs[b0:b1]) / l
+    return out
+
+
 def flash_bf16_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      want: torch.Tensor) -> torch.Tensor:
-    """Per-element bound on |bf16 kernel - ``want``|, where ``want`` is
-    ``flash_plain(q, k, v)`` on the same bf16 inputs.
+    """Per-element bound on |kernel - ``want``| for the 16-bit kernel of
+    q's dtype (bf16 or f16), where ``want`` is ``flash_plain(q, k, v)`` on
+    the same inputs.
 
-    The kernel rounds twice where the plain version does not.  With
-    u = 2**-8, bf16's unit roundoff (8 significant bits, round to
-    nearest): each weight p_j is rounded to bf16 before P.V, which moves
-    the output by at most u * sum_j p_j |v_j| / l, that is
-    ``u * flash_plain(q, k, |v|)``; and the output is rounded to bf16, at
-    most u * |want|.  3e-5 covers sums taken in another order in f32 (the
-    f32 path's 2e-5, plus the tensor cores' accumulation)."""
-    return BF16_U * (want.abs() + flash_plain(q, k, v.abs())) + 3e-5
+    The kernel rounds twice where the plain version does not.  With u the
+    type's unit roundoff (2**-8 for bf16, 2**-11 for f16; round to
+    nearest): each weight p_j is rounded to the type before P.V, which
+    moves the output by at most u * sum_j p_j |v_j| / l, that is
+    ``u * flash_plain(q, k, |v|)``; and the output is rounded to the type,
+    at most u * |want|.  In f16 a weight below the least normal number
+    2**-14 keeps an absolute error of up to u * 2**-14, so there the sum
+    takes max(p_j, 2**-14) (the kernel's p_j, taken against a running
+    max, is never smaller than p_j against the row's max).  3e-5 covers
+    sums taken in another order in f32 (the f32 path's 2e-5, plus the
+    tensor cores' accumulation)."""
+    u = HALF_U[q.dtype]
+    if q.dtype == torch.float16:
+        weights = _floored_weights(q, k, v.abs().float(), F16_MIN_NORMAL)
+    else:
+        weights = flash_plain(q, k, v.abs())
+    return u * (want.abs() + weights) + 3e-5
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,11 +207,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal flash attention forward.
 
     q: [BH, S, hd]; k, v: [BH, Sk, hd] (GQA: the caller broadcasts the
-    kv heads).  f32 or bf16, hd 32, 64 or 128.  Returns [BH, S, hd] in
-    q's dtype.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel of their dtype on the current stream, without
-    synchronising (tensors must start on 16-byte boundaries, as TMA and
-    16-byte loads read them).  In f32 that is two launches, the pre-pass
+    kv heads), of one floating dtype.  Returns [BH, S, hd] in q's dtype.
+    CPU tensors of any hd and floating dtype take the plain version.
+    CUDA tensors (f32, bf16 or f16; hd 32, 64 or 128) launch the kernel
+    of their dtype on the current stream, without synchronising (tensors
+    must start on 16-byte boundaries, as TMA and 16-byte loads read
+    them).  In f32 that is two launches, the pre-pass
     (:func:`tf32_split`) and the main kernel, counted once in
     ``LAUNCHES``."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
@@ -187,16 +229,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if S % bq or Sk % bk:
         raise ValueError(f"S={S} and Sk={Sk} must be multiples of bq={bq} "
                          f"and bk={bk}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"hd={hd} not supported; expected one of "
-                         f"{HEAD_DIMS}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must share a dtype in {DTYPES}; got "
+    if not q.dtype.is_floating_point or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share a floating dtype; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.device.type == "cpu":
         return flash_plain(q, k, v).to(q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"hd={hd} not supported on the card; expected one "
+                         f"of {HEAD_DIMS}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"dtype {q.dtype} not supported on the card; "
+                         f"expected one of {DTYPES}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -208,10 +254,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if BH == 0 or S == 0:
         return out
     lib = _build.library()
-    if q.dtype == torch.bfloat16:
-        err = lib.cdll.flash_attn_wgmma_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S,
-            Sk, hd, hd ** -0.5, stream)
+    if q.dtype in HALF_U:
+        launch = lib.cdll.flash_attn_wgmma_launch \
+            if q.dtype == torch.bfloat16 \
+            else lib.cdll.flash_attn_wgmma_f16_launch
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     BH, S, Sk, hd, hd ** -0.5, stream)
     else:
         planes = tf32_split(q, k, v)
         err = lib.cdll.flash_attn_tf32_launch(

@@ -5,8 +5,10 @@ Replaces the TPU kernel ``sliding_md5_pallas``
 (``src/repro/kernels/sliding_md5.py``, ``_sliding_kernel``) together
 with the strip construction that fed it (``src/repro/kernels/ops.py``,
 ``_byte_phase_strips_batch``): the kernel (``csrc/sliding_md5.cu``)
-builds each byte-rotated window in registers from the row itself.  It is
-bound by integer operations (one 64-round compression per window).
+stages a tile of ``TILE_WORDS`` word offsets of one row in shared
+memory, builds the byte-shifted strips there, and hashes four windows
+per thread.  It is bound by integer instruction issue (one compression
+per window, of which it computes only what digest word ``a`` needs).
 
 For row b, phase index i (byte phase ``r = i * stride``) and word offset
 q, output ``[b, i, q]`` is digest word ``a`` of the ``w_words``-word
@@ -26,6 +28,9 @@ from repro_torch.kernels.md5 import to_uint32
 from repro_torch.kernels.ref import MASK, as_words64, md5_window_a
 
 LAUNCHES = _build.LaunchCounter("sliding_md5")
+# word offsets per block of the kernel (kTile in csrc/sliding_md5.cu): a
+# row's last tile is the one that checks bounds
+TILE_WORDS = 1024
 
 # window offsets hashed per step of the plain version (bounds its memory)
 PLAIN_BLOCK = 1 << 22

@@ -1,7 +1,8 @@
 """The port's CUDA kernels and engine on the card: each hashing kernel
 against its plain version and ``hashlib`` or ``_cpu_gear``, bit for bit,
 flash attention against its plain version (f32 within the JAX package's
-2e-5, bf16 within the bound derived from its rounding), the f32 flash
+2e-5, also on rows of 16384 and 32768 keys; bf16 and f16 within the bound
+derived from their rounding), the f32 flash
 kernel's TF32 pre-pass against its plain version bit for bit, and two managers
 sharing one card through their own streams.  Every test here needs an
 NVIDIA GPU and ``nvcc``; without them it skips.  Run on a GPU machine with
@@ -64,6 +65,48 @@ def test_sliding_kernel_matches_plain_and_hashlib(cuda, rng, stride):
         b0 = int(o) * stride
         ref = hashlib.md5(buf[b0:b0 + 48].tobytes()).digest()
         assert int(hashes[o]) == int.from_bytes(ref[:4], "little")
+
+
+def _window_a(row: np.ndarray, start: int, window: int) -> int:
+    """hashlib's digest word a of ``window`` bytes of a row of bytes from
+    ``start``, zeros past the row's end."""
+    chunk = row[start:start + window].tobytes()
+    chunk += bytes(window - len(chunk))
+    return int.from_bytes(hashlib.md5(chunk).digest()[:4], "little")
+
+
+@pytest.mark.parametrize("w_words", range(1, 14))
+@pytest.mark.parametrize("stride", [1, 2, 4])
+def test_sliding_kernel_edges(cuda, rng, stride, w_words):
+    """Rows around the kernel's tile (T - 1, T, T + 1 and T + w_words
+    words), rows shorter than a window and of one word, three rows of
+    distinct content per launch, and a row that does not start on a
+    16-byte boundary: bit for bit against the plain version, and sampled
+    windows (the last ones included) against hashlib."""
+    T = sliding_md5.TILE_WORDS
+    R = 4 // stride
+    for L in (T - 1, T, T + 1, T + w_words, max(w_words - 1, 1), 1):
+        data = rng.integers(0, 2 ** 32, (3, L), dtype=np.uint32)
+        words = torch.from_numpy(data).to(cuda)
+        before = sliding_md5.LAUNCHES.value
+        got = sliding_md5.sliding_md5_words(words, w_words, stride)
+        assert sliding_md5.LAUNCHES.value == before + 1
+        assert got.shape == (3, R, L)
+        assert _equal(got, sliding_md5.sliding_plain(words, w_words, stride))
+        host = got.cpu().numpy()
+        for b in range(3):
+            row = data[b].astype("<u4").view(np.uint8)
+            for q in {0, L // 2, L - 1, max(L - w_words, 0)}:
+                for i in range(R):
+                    assert int(host[b, i, q]) == _window_a(
+                        row, 4 * q + i * stride, 4 * w_words)
+    # a view one word into a buffer: rows not on 16-byte boundaries
+    data = torch.from_numpy(rng.integers(0, 2 ** 32, 2 * T + 9,
+                                         dtype=np.uint32)).to(cuda)
+    words = data[1:].view(1, 2 * T + 8)
+    assert words.data_ptr() % 16
+    assert _equal(sliding_md5.sliding_md5_words(words, w_words, stride),
+                  sliding_md5.sliding_plain(words, w_words, stride))
 
 
 def test_two_managers_on_one_card_write_and_read(cuda, rng):
@@ -154,11 +197,13 @@ def _plain_dropping(q, k, v, lo, hi):
 
 
 # f32: 2e-5 as the JAX package's flash tests state it (sums taken in
-# another order).  bf16: the kernel rounds P to bf16 before P.V, as the
-# reference does, and the output to bf16; flash_attn.flash_bf16_bound
-# derives the per-element bound from those two roundings:
-# |got - want| <= 2**-8 |want| + 2**-8 (P |V|) / l + 3e-5.
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# another order).  bf16 and f16: the kernel rounds P to the type before
+# P.V, as the reference does, and the output to the type;
+# flash_attn.flash_bf16_bound derives the per-element bound from those two
+# roundings: |got - want| <= u |want| + u (P |V|) / l + 3e-5, u = 2**-8
+# for bf16 and 2**-11 for f16.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("S,Sk,hd,bq,bk", [(256, 256, 64, 64, 128),
                                            (512, 512, 32, 128, 256),
                                            (128, 128, 128, 128, 128),
@@ -169,8 +214,9 @@ def _plain_dropping(q, k, v, lo, hi):
                                            (448, 704, 128, 64, 64)])
 def test_flash_kernel_matches_plain(cuda, S, Sk, hd, bq, bk, dtype):
     """The kernel of each dtype against its plain version on the same
-    inputs, ragged lengths and Sk != S both ways included; in bf16 the
-    plain version with one key tile dropped must fail the bound."""
+    inputs, ragged lengths and Sk != S both ways included; in bf16 and
+    f16 the plain version with one key tile dropped must fail the
+    bound."""
     g = torch.Generator(device=cuda).manual_seed(S + Sk + hd)
     q, k, v = (torch.randn((3, n, hd), generator=g, device=cuda).to(dtype)
                for n in (S, Sk, Sk))
@@ -206,6 +252,33 @@ def test_tf32_split_kernel_matches_plain(cuda, S, Sk, hd):
     want = flash_attn.tf32_split_plain(q, k, v)
     for a, b in zip(got, want):
         assert a.shape == b.shape and _equal(a, b)
+
+
+@pytest.mark.parametrize("S", [16384, 32768])
+def test_flash_f32_long_rows_within_2e5(cuda, S):
+    """The 3xTF32 kernel keeps O as one chain of tensor-core products over
+    every key tile of a row, so its error grows with the row: one head of
+    S = Sk keys against the plain version with TF32 off, at 2e-5."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((1, S, 128), generator=g, device=cuda)
+               for _ in range(3))
+    got = flash_attn.flash_attention_fwd(q, k, v)
+    want = flash_attn.flash_plain(q, k, v)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("hd,dtype", [(48, torch.float32),
+                                      (128, torch.float64),
+                                      (16, torch.float16)])
+def test_flash_cuda_raises_where_no_kernel(cuda, hd, dtype):
+    """A CUDA tensor of a head dim or dtype the kernels lack raises; it
+    never falls back to the plain version."""
+    q = torch.zeros((1, 128, hd), dtype=dtype, device=cuda)
+    before = flash_attn.LAUNCHES.value
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention_fwd(q, q, q)
+    assert flash_attn.LAUNCHES.value == before
 
 
 def test_flash_f32_launches_the_split_and_the_kernel_once(cuda):

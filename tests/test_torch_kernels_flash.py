@@ -69,14 +69,46 @@ def test_flash_plain_is_the_naive_softmax(rng):
                                    rtol=2e-5)
 
 
+@pytest.mark.parametrize("hd,dtype", [(48, torch.float32),
+                                      (64, torch.float16),
+                                      (16, torch.float16),
+                                      (48, torch.bfloat16)])
+def test_flash_takes_any_head_dim_and_float_dtype_on_cpu(rng, hd, dtype):
+    """Head dims and dtypes the CUDA kernels lack (hd 48 or 16, float16 on
+    the CPU) go to the plain version and match the JAX function at the
+    same seed, as the reference computes them all.  Tolerances: f32 the
+    JAX package's 2e-5; bf16 its 3e-2; f16 per element the reference's
+    own rounding (P and the output to f16, ``flash_bf16_bound`` at
+    u = 2**-11) plus the port's rounding of the output, u |want|."""
+    q, k, v = _inputs(rng, 2, 128, 128, hd)
+    got = flash_attn.flash_attention_fwd(
+        *(torch.from_numpy(x).to(dtype) for x in (q, k, v)), bq=64, bk=64)
+    jdtype = {torch.float32: jnp.float32, torch.float16: jnp.float16,
+              torch.bfloat16: jnp.bfloat16}[dtype]
+    want = ref_flash(*(jnp.asarray(x, jdtype) for x in (q, k, v)),
+                     bq=64, bk=64)
+    assert got.dtype == dtype and got.shape == (2, 128, hd)
+    assert want.dtype == jdtype
+    got, want = got.float(), torch.from_numpy(np.array(want, np.float32))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    elif dtype == torch.bfloat16:
+        torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+    else:
+        qh, kh, vh = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+        plain = flash_attn.flash_plain(qh, kh, vh)
+        bound = flash_attn.flash_bf16_bound(qh, kh, vh, plain) \
+            + flash_attn.HALF_U[dtype] * plain.abs()
+        assert bool(((got - want).abs() <= bound).all())
+
+
 @pytest.mark.parametrize("shapes,dtype,kw", [
-    (((2, 128, 48), (2, 128, 48)), torch.float32, {}),       # hd
-    (((2, 128, 64), (2, 128, 64)), torch.float16, {}),       # dtype
     (((2, 96, 64), (2, 128, 64)), torch.float32, {"bq": 64}),
     (((2, 128, 64), (2, 100, 64)), torch.float32, {"bk": 64}),
     (((2, 128, 64), (3, 128, 64)), torch.float32, {}),       # BH
 ])
 def test_flash_rejects_what_the_kernel_does_not_take(shapes, dtype, kw):
+    """Shapes the reference's contract refuses too."""
     q = torch.zeros(shapes[0], dtype=dtype)
     k = torch.zeros(shapes[1], dtype=dtype)
     with pytest.raises(ValueError):

@@ -8,7 +8,8 @@ per-element bound derived from those two roundings.  Here the reference
 itself, on the same bf16 inputs made with numpy, must lie within that
 bound of the plain version, and the plain version with one key tile left
 out must not: the bound admits the reference's rounding and still catches
-a lost tile."""
+a lost tile.  The f16 kernel is held the same way, at f16's unit roundoff
+2**-11 in place of bf16's 2**-8."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,9 +23,9 @@ SHAPES = [(256, 256, 64, 64, 128), (256, 128, 64, 64, 64),
           (256, 256, 128, 128, 128)]
 
 
-def _inputs(rng, S, Sk, hd):
+def _inputs(rng, S, Sk, hd, dtype=torch.bfloat16):
     return [torch.from_numpy(rng.standard_normal((2, n, hd))
-                             .astype(np.float32)).to(torch.bfloat16)
+                             .astype(np.float32)).to(dtype)
             for n in (S, Sk, Sk)]
 
 
@@ -53,6 +54,27 @@ def test_reference_bf16_within_bound(rng, S, Sk, hd, bq, bk):
 @pytest.mark.parametrize("S,Sk,hd,bq,bk", SHAPES)
 def test_dropped_key_tile_fails_bound(rng, S, Sk, hd, bq, bk):
     q, k, v = _inputs(rng, S, Sk, hd)
+    want = flash_attn.flash_plain(q, k, v)
+    bound = flash_attn.flash_bf16_bound(q, k, v, want)
+    lost = _plain_dropping(q, k, v, 64, 128)
+    assert not bool(((lost - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("S,Sk,hd,bq,bk", SHAPES)
+def test_reference_f16_within_bound(rng, S, Sk, hd, bq, bk):
+    q, k, v = _inputs(rng, S, Sk, hd, torch.float16)
+    ref = ref_flash(*(jnp.asarray(x.float().numpy(), jnp.float16)
+                      for x in (q, k, v)), bq=bq, bk=bk)
+    assert ref.dtype == jnp.float16
+    got = torch.from_numpy(np.asarray(ref, np.float32))
+    want = flash_attn.flash_plain(q, k, v)
+    bound = flash_attn.flash_bf16_bound(q, k, v, want)
+    assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("S,Sk,hd,bq,bk", SHAPES)
+def test_dropped_key_tile_fails_f16_bound(rng, S, Sk, hd, bq, bk):
+    q, k, v = _inputs(rng, S, Sk, hd, torch.float16)
     want = flash_attn.flash_plain(q, k, v)
     bound = flash_attn.flash_bf16_bound(q, k, v, want)
     lost = _plain_dropping(q, k, v, 64, 128)

@@ -118,9 +118,14 @@ def test_cpu_tensor_never_builds_the_kernel(monkeypatch, rng):
 
 
 def test_cuda_source_constants_match_md5():
-    """The round constants written into the CUDA source are MD5's."""
+    """The round constants written into the CUDA source are MD5's: the
+    one list REPRO_MD5_K, from which the constant-bank table kMd5K and
+    the constexpr md5_k are both initialised."""
     src = (Path(_build.CSRC) / "md5_core.cuh").read_text()
-    table = src[src.index("kMd5K[64]"):src.index("};")]
+    table = src[src.index("#define REPRO_MD5_K"):]
+    table = table[:table.index("\n\n")]
     consts = [int(x, 16) for x in re.findall(r"0x([0-9a-f]{8})u", table)]
     assert tuple(consts) == ref.MD5_K
+    assert "kMd5K[64] = {REPRO_MD5_K};" in src
+    assert "k[64] = {REPRO_MD5_K};" in src
 

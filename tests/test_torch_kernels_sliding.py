@@ -88,6 +88,40 @@ def test_phase_matrix_matches_reference_layout(rng, stride):
     np.testing.assert_array_equal(strips.numpy(), jstrips)
 
 
+@pytest.mark.parametrize("L", [sliding_md5.TILE_WORDS - 1,
+                               sliding_md5.TILE_WORDS,
+                               sliding_md5.TILE_WORDS + 1,
+                               sliding_md5.TILE_WORDS + 13, 5, 1])
+def test_plain_at_the_kernels_edges_matches_reference(rng, L):
+    """The plain version, which the card holds its kernel to, at the
+    kernel's ragged shapes (around its tile of TILE_WORDS offsets, shorter
+    than a window, one word), three rows of distinct content: the phase
+    matrix equals the JAX wrapper's at each stride, the largest and the
+    smallest window; the complete windows of a row at stride 1 equal the
+    JAX oracle's, and its sampled windows hashlib's."""
+    words = rng.integers(0, 2 ** 32, (3, L), dtype=np.uint32)
+    for stride, ww in ((1, 13), (2, 12), (4, 1)):
+        phases = sliding_md5.phases_for(stride)
+        got = sliding_md5.sliding_md5_words(torch.from_numpy(words), ww,
+                                            stride).numpy()
+        assert got.shape == (3, len(phases), L)
+        want = np.asarray(jops.sliding_hash_batch_device(
+            jnp.asarray(words), ww, phases))
+        np.testing.assert_array_equal(got, want[:, :, :L])
+        row = words[1].astype("<u4").view(np.uint8)
+        n_off = (row.size - 4 * ww) // stride + 1
+        if n_off <= 0:
+            continue
+        hashes = ops.sliding_finish(got[1], phases, n_off)
+        for o in {0, n_off // 2, n_off - 1}:
+            b0 = o * stride
+            assert int(hashes[o]) == _md5_a(row[b0:b0 + 4 * ww])
+        if stride == 1:
+            np.testing.assert_array_equal(
+                hashes, np.asarray(jref.sliding_md5_ref(jnp.asarray(row),
+                                                        4 * ww, stride)))
+
+
 def test_bad_arguments_raise():
     words = torch.zeros((1, 8), dtype=torch.uint32)
     with pytest.raises(ValueError):

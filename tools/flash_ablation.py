@@ -111,15 +111,17 @@ def build(name, src, out_dir, nvcc, arch):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    # the hd-128 kernel's lines: its entry, then registers and spills
+    # the hd-128 bf16 kernel's lines (template <128, false>): its entry,
+    # then registers and spills
     lines, cur = [], None
     for line in proc.stdout.splitlines():
         m = re.search(r"(Compiling entry function|Function properties for) "
                       r"'?(\S+?)'?( for|$)", line)
         if m:
             cur = m.group(2)
-        if cur and "ILi128E" in cur and ("Used" in line or "spill" in line
-                                         or "(C75" in line):
+        if cur and "ILi128ELb0E" in cur and ("Used" in line
+                                             or "spill" in line
+                                             or "(C75" in line):
             lines.append(line.split(":", 1)[-1].strip()[:110])
     return name, so, lines
 
