@@ -3,7 +3,7 @@
 GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
-CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs six phases,
+CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs seven phases,
 each printing its results:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
@@ -51,7 +51,20 @@ each printing its results:
    ``scaled_dot_product_attention`` timed beside it and the achieved
    TFLOP/s; the f32 path's TF32 pre-pass is also timed alone, and the f32
    bound is that of 3xTF32 on the tensor cores, the cheaper of the two
-   ways to f32 accuracy.
+   ways to f32 accuracy;
+7. the serving plane: a ``StorageGateway`` with no engine passed (so the
+   default ``CrystalGPU`` on the card, adaptive fusion on), tenant auth,
+   its node runtime and the HTTP health plane, behind a ``GatewayServer``
+   on localhost; four tenant client processes (two interactive, two
+   batch) each write four 48 MiB versions of their own checkpoint series
+   with ``ca='cdc-gear'`` and read them back verified, compared byte for
+   byte and against an in-process SAI's similarity, with the engine's
+   cross-client coalescing, refused opens (wrong secret, expired token),
+   ``/metrics`` and ``/health``; then one byte flipped in one replica of 8
+   blocks, found by a scrub on the engine's scrub lane, repaired and
+   scrubbed clean; the gateway's write latencies with the runtime paused
+   and sweeping; and a durable gateway (``ca='cdc'``, stride 1) closed and
+   reopened, its recovery suspects scrubbed on the card.
 
 Any failed check raises, so the script exits non-zero.  The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -145,6 +158,16 @@ SIMILARITY = {"fixed": [0.0, 0.7773, 0.4141, 0.8086],
               "cdc": [0.0, 0.7582, 0.4124, 0.7732],
               "cdc-stride1": [0.0, 0.8678, 0.8533, 0.8486],
               "cdc-gear": [0.0, 0.8309, 0.8592, 0.8213]}
+# phase 7: the serving plane.  Four tenant client processes (two
+# interactive, two batch) each write four versions of their own
+# checkpoint series (seed 1 + i) of 48 MiB, under the gateway's 64 MiB
+# frame cap, then read every version back verified
+GATEWAY_BYTES = 48 * MiB
+GATEWAY_VERSIONS = 4
+TENANTS = [(f"tenant{i}", "interactive" if i < 2 else "batch", 1 + i)
+           for i in range(4)]
+# stored blocks of node 1 whose copy there phase 7 corrupts
+SCRUB_CORRUPT = 8
 
 
 def ops_per_compression(const_words: int = 0, final_adds: int = 4) -> int:
@@ -1126,6 +1149,327 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
     return out, launches
 
 
+def tenant_client(spec: dict) -> int:
+    """One tenant's client process of phase 7: write its checkpoint
+    series through the gateway over TCP, read every version back
+    verified, compare bytes here, and print what it saw as JSON."""
+    from repro_torch.serve import GatewayClient
+    series = checkpoint_series(spec["versions"], spec["image_bytes"], 0.15,
+                               seed=spec["seed"])
+    client = GatewayClient(spec["address"], spec["tenant"], qos=spec["qos"],
+                           secret=spec["secret"].encode())
+    total = sum(len(img) for img in series)
+    t0 = time.perf_counter()
+    writes = [client.write(spec["path"], img, timeout=600)
+              for img in series]
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = [client.read(spec["path"], version=v, verify=True, timeout=600)
+            for v in range(len(series))]
+    t_read = time.perf_counter() - t0
+    client.close()
+    same = [got == img for got, img in zip(back, series)]
+    print(json.dumps({
+        "tenant": spec["tenant"], "qos": spec["qos"], "reads_equal": same,
+        "write_mb_s": total / t_write / 1e6,
+        "read_mb_s": total / t_read / 1e6,
+        "new_blocks": [w["new_blocks"] for w in writes],
+        "dup_blocks": [w["dup_blocks"] for w in writes],
+        "similarity": [w["dup_blocks"] / (w["new_blocks"] + w["dup_blocks"])
+                       for w in writes]}))
+    return 0 if all(same) else 1
+
+
+def hist_percentiles(before, after, ps=(50, 99)):
+    """Count and percentiles (seconds) of the latencies a ``Histogram``
+    recorded between two ``buckets()`` reads, by its own rule: bucket i
+    holds [2**(i-1), 2**i) ns and reads as its geometric middle."""
+    delta = [a - b for a, b in zip(after, before)]
+    n = sum(delta)
+    out = {}
+    for p in ps:
+        rank, cum = max(1, -(-n * p // 100)), 0
+        for i, c in enumerate(delta):
+            cum += c
+            if cum >= rank:
+                out[p] = 0.0 if i == 0 else 2.0 ** (i - 0.5) / 1e9
+                break
+    return n, out
+
+
+def http_get(port: int, path: str):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def run_tenants(address: str, secrets, image_bytes: int, seed_offset: int,
+                prefix: str, smi: str):
+    """Run the four tenant client processes of phase 7 at once, tenant i
+    on the series of seed ``seed_offset + i``, and return what each saw.
+    Fails if a process fails or reads back other bytes; kills the others
+    then."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    try:
+        for name, qos, seed in TENANTS:
+            spec = {"address": address, "tenant": name, "qos": qos,
+                    "secret": secrets[name].decode(),
+                    "seed": seed_offset + seed, "versions": GATEWAY_VERSIONS,
+                    "image_bytes": image_bytes, "path": f"{prefix}/{name}"}
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--tenant-client", json.dumps(spec)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env))
+        results = []
+        for (name, _, _), p in zip(TENANTS, procs):
+            out, err = p.communicate(timeout=900)
+            check(p.returncode == 0, f"client process {name} exited "
+                  f"{p.returncode}: {err.strip()[-2000:]}")
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in results:
+        check(all(r["reads_equal"]), f"{r['tenant']}: every version reads "
+              f"back byte-identical over TCP")
+        print(f"{r['tenant']} ({r['qos']}): write {r['write_mb_s']:.1f} "
+              f"MB/s, read (verified) {r['read_mb_s']:.1f} MB/s over "
+              f"{GATEWAY_VERSIONS} x {image_bytes // MiB} MiB; new blocks "
+              f"{r['new_blocks']}, duplicate {r['dup_blocks']}; similarity "
+              f"{[round(x, 4) for x in r['similarity']]} [{smi}]")
+    return results
+
+
+def phase_serving(torch, np, smi: str, image_bytes: int = GATEWAY_BYTES):
+    """Phase 7: the serving plane on the card.  (a) an in-memory gateway
+    with its default engine, tenant auth, the health plane and four
+    tenant client processes over TCP; (b) scrub and repair by the
+    gateway's node runtime on the engine's scrub lane; (c) a durable
+    gateway reopened on its directory."""
+    print("== phase 7: serving plane (GatewayClient -> TCP -> "
+          "StorageGateway -> SAI -> CrystalGPU; node runtime)")
+    from repro_torch.core import SAI, SAIConfig, make_store
+    from repro_torch.core import crystal as crystal_mod
+    from repro_torch.kernels import gear, md5, sliding_md5
+    from repro_torch.serve import (AuthError, GatewayClient, GatewayConfig,
+                                   GatewayServer, StorageGateway,
+                                   TokenAuthenticator, mint_token)
+    t_phase = time.perf_counter()
+    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+                "gear": gear.LAUNCHES}
+    secrets = {name: f"secret-{name}".encode() for name, _, _ in TENANTS}
+    mgr, nodes = make_store(4, replication=2)
+    gw = StorageGateway(mgr, config=GatewayConfig(
+        sai=SAIConfig(ca="cdc-gear"), scrub=True, metrics_port=0,
+        health=True, auth=TokenAuthenticator(secrets)))
+    server = GatewayServer(gw, host="127.0.0.1", port=0)
+    eng = gw.engine
+    address = "%s:%d" % server.address
+    try:
+        check([str(d) for d in eng.devices] == ["cuda:0"]
+              and eng is crystal_mod.default_engine()
+              and eng.policy.adaptive,
+              f"the gateway resolved the default engine on cuda:0 with "
+              f"adaptive fusion, got {eng.devices}")
+        hist = gw.metrics.histogram("request_s/write")
+
+        # (a) four tenant client processes over TCP, the runtime paused
+        gw.runtime.pause()
+        for c in counters.values():
+            c.reset()
+        s0, h0 = eng.snapshot_stats(), hist.buckets()
+        t0 = time.perf_counter()
+        results = run_tenants(address, secrets, image_bytes, 0, "/ckpt", smi)
+        t_burst = time.perf_counter() - t0
+        s1, h1 = eng.snapshot_stats(), hist.buckets()
+        launches = {n: c.value for n, c in counters.items()}
+        jobs, fused = s1["jobs"] - s0["jobs"], s1["launches"] - s0["launches"]
+        total = GATEWAY_VERSIONS * image_bytes * len(TENANTS)
+        print(f"burst of {len(TENANTS)} client processes: {total // MiB} MiB "
+              f"written and read back in {t_burst:.2f} s; engine {fused} "
+              f"launches / {jobs} jobs; kernel launches {launches}")
+        check(fused < jobs, f"cross-client coalescing: {fused} launches < "
+              f"{jobs} jobs")
+        check(launches["gear"] > 0 and launches["md5"] > 0,
+              "the gateway's tenants ran the gear and md5 kernels")
+        n, paused = hist_percentiles(h0, h1)
+
+        # each tenant's similarity == an in-process SAI's on the same
+        # engine, the same configuration and the same series
+        tenant_series = [checkpoint_series(GATEWAY_VERSIONS, image_bytes,
+                                           0.15, seed=seed)
+                         for _, _, seed in TENANTS]
+        for (name, _, _), r, series in zip(TENANTS, results, tenant_series):
+            sai = SAI(make_store(4, replication=2)[0],
+                      SAIConfig(ca="cdc-gear"), crystal=eng)
+            want = [round(sai.write("/ckpt", img).similarity, 4)
+                    for img in series]
+            sai.close()
+            check([round(x, 4) for x in r["similarity"]] == want,
+                  f"{name}: similarity {r['similarity']} == in-process SAI "
+                  f"{want}")
+        print("every tenant's similarity equals an in-process SAI's on the "
+              "same series, to 4 places")
+
+        # auth over TCP: a wrong secret and an expired token are refused
+        for what, kw in (("wrong secret", {"secret": b"wrong"}),
+                         ("expired token", {"token": mint_token(
+                             "tenant0", secrets["tenant0"], ttl_s=-1)})):
+            try:
+                GatewayClient(address, "tenant0", **kw).close()
+                refused = False
+            except AuthError:
+                refused = True
+            check(refused, f"an open with a {what} raises AuthError")
+        print("an open with a wrong secret and one with an expired token "
+              "both raise AuthError over TCP")
+
+        # the HTTP health plane
+        code, body = http_get(gw.http.port, "/metrics")
+        text = body.decode()
+        check(code == 200 and "# TYPE repro_engine_launches counter" in text
+              and "\nrepro_engine_launches " in text,
+              "GET /metrics serves repro_engine_launches with # TYPE lines")
+        deadline, health = time.monotonic() + 60, None
+        while time.monotonic() < deadline:
+            code, body = http_get(gw.http.port, "/health")
+            health = json.loads(body)
+            if code == 200 and health["status"] == "ok":
+                break
+            time.sleep(0.1)
+        check(code == 200 and health["status"] == "ok",
+              f"GET /health reaches 200 with status ok: {code} {health}")
+        print(f"GET /metrics: {len(text.splitlines())} lines with # TYPE; "
+              f"GET /health: 200, status ok")
+
+        # (b) scrub and repair on the card.  pause() would also hold the
+        # synchronous cycles below at the runtime's gate, so the
+        # background loops are stopped instead and started again after
+        rt = gw.runtime
+        rt.stop()
+        bad = sorted(d for d in nodes[1].healthy_digests()
+                     if not d.startswith(b"raw!"))[:SCRUB_CORRUPT]
+        check(len(bad) == SCRUB_CORRUPT, f"node 1 holds {SCRUB_CORRUPT} "
+              f"blocks to corrupt")
+        for d in bad:
+            blk = nodes[1].blocks[d]
+            nodes[1].blocks[d] = bytes([blk[0] ^ 0xFF]) + blk[1:]
+        resident = sum(len(n.blocks[d]) for n in nodes
+                       for d in n.healthy_digests())
+        e0 = eng.snapshot_stats()
+        t0 = time.perf_counter()
+        first = rt.scrub_once()
+        t_scrub = time.perf_counter() - t0
+        placed = rt.repair_once()
+        second = rt.scrub_once()
+        e1 = eng.snapshot_stats()
+        scrub_jobs = e1["scrub_jobs"] - e0["scrub_jobs"]
+        scrub_launches = e1["scrub_launches"] - e0["scrub_launches"]
+        check(first["corrupt"] == SCRUB_CORRUPT, f"the first scrub finds "
+              f"exactly {SCRUB_CORRUPT} corrupt copies: {first}")
+        for d in bad:
+            healthy = [nid for nid in mgr.lookup_block(d)
+                       if mgr.nodes[nid].has(d)]
+            check(len(healthy) == 2, f"block {d.hex()[:8]} has 2 healthy "
+                  f"replicas after repair: {healthy}")
+        check(second["corrupt"] == 0, f"the second scrub finds 0: {second}")
+        check(scrub_launches < scrub_jobs, f"fused scrub bursts: "
+              f"{scrub_launches} scrub launches < {scrub_jobs} scrub jobs")
+        print(f"scrub: {first['scanned']} block copies ({resident / MiB:.1f} "
+              f"MiB) in {t_scrub:.3f} s = {resident / t_scrub / 1e6:.1f} MB/s "
+              f"[{smi}], {first['corrupt']} corrupt; repair placed {placed} "
+              f"copies; second scrub {second}; scrub lane {scrub_launches} "
+              f"launches / {scrub_jobs} jobs")
+        for (name, _, _), series in zip(TENANTS, tenant_series):
+            c = GatewayClient(address, name, secret=secrets[name])
+            for v, img in enumerate(series):
+                check(c.read(f"/ckpt/{name}", version=v, verify=True,
+                             timeout=600) == img,
+                      f"{name} version {v} reads back after the repair")
+            c.close()
+        print("every tenant's versions read back byte-identical after the "
+              "repair")
+
+        # the same burst with the runtime sweeping, for the latency
+        # percentiles beside the paused ones (fresh series, seeds 11-14)
+        rt.start()
+        del tenant_series
+        print("the same burst again, series of seeds 11-14, with the "
+              "runtime sweeping:")
+        h2 = hist.buckets()
+        sweeps0 = rt.snapshot_stats()["scrubbed_blocks"]
+        run_tenants(address, secrets, image_bytes, 10, "/sweep", smi)
+        h3 = hist.buckets()
+        m, sweeping = hist_percentiles(h2, h3)
+        print(f"gateway request_s/write over {n} writes, runtime paused: "
+              f"p50 {paused[50]:.3f} s, p99 {paused[99]:.3f} s; over {m} "
+              f"writes, runtime sweeping ("
+              f"{rt.snapshot_stats()['scrubbed_blocks'] - sweeps0} blocks "
+              f"scrubbed meanwhile): p50 {sweeping[50]:.3f} s, p99 "
+              f"{sweeping[99]:.3f} s [{smi}]")
+    finally:
+        server.close()
+        gw.close()
+
+    # (c) a durable gateway at the paper's stride-1 CDC, reopened
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    series = checkpoint_series(2, image_bytes, 0.15, seed=1)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        cfg = GatewayConfig(data_dir=d, n_nodes=4, replication=2,
+                            scrub=True, sai=SAIConfig(ca="cdc", stride=1))
+        sliding_md5.LAUNCHES.reset()
+        gw = StorageGateway(config=cfg)
+        try:
+            server = GatewayServer(gw, host="127.0.0.1", port=0)
+            c = GatewayClient(server, "durable")
+            t0 = time.perf_counter()
+            stats = [c.write("/durable", img, timeout=600) for img in series]
+            t_write = time.perf_counter() - t0
+            c.close()
+            server.close()
+        finally:
+            gw.close()
+        slid = sliding_md5.LAUNCHES.value
+        check(slid > 0, "the durable gateway's cdc stride-1 writes ran the "
+              "sliding kernel")
+        gw = StorageGateway(config=cfg)
+        try:
+            rep = gw.recovery_report
+            suspects = sum(len(v) for v in rep.suspects.values())
+            c = GatewayClient(gw, "durable")
+            for v, img in enumerate(series):
+                check(c.read("/durable", version=v, verify=True,
+                             timeout=600) == img,
+                      f"durable version {v} reads back after the reopen")
+            c.close()
+            check(rep.refcount_drift == 0 and not rep.lost_blocks,
+                  f"recovery: drift {rep.refcount_drift}, lost "
+                  f"{len(rep.lost_blocks)}")
+        finally:
+            gw.close()
+    sim = [round(w["dup_blocks"] / (w["new_blocks"] + w["dup_blocks"]), 4)
+           for w in stats]
+    print(f"durable gateway (cdc, stride 1): 2 x {image_bytes // MiB} MiB "
+          f"written at {2 * image_bytes / t_write / 1e6:.1f} MB/s [{smi}] "
+          f"(similarity {sim}), {slid} sliding launches; reopened "
+          f"(snapshot seq {rep.snapshot_seq}, {rep.replayed} records "
+          f"replayed, {suspects} suspects scrubbed), both versions read "
+          f"back verified")
+    eng.shutdown()
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1148,6 +1492,8 @@ def main() -> int:
     times, flash_launches = phase_times(torch, np, dev, sm_clocks, pipes,
                                         cycles_per_round, errs, gear_largest)
     launches.update(flash_launches)
+    serving_launches = phase_serving(torch, np, smi)
+    print(f"phase 7 kernel launches: {serving_launches}")
     kernels = []
     for name, counter, source, replaces in [
             ("md5_direct", "md5", "src/repro_torch/kernels/csrc/md5.cu",
@@ -1183,4 +1529,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--tenant-client":
+        sys.exit(tenant_client(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -14,4 +14,6 @@ from repro_torch.core.crystal import CrystalGPU, Job, default_engine  # noqa: F4
 from repro_torch.core.sai import (SAI, SAIConfig, ReadFuture,  # noqa: F401
                                   StoreIOError, WriteFuture, WriteStats,
                                   pack_blocks)
+from repro_torch.core.noderuntime import (ClusterRuntime,  # noqa: F401
+                                          NodeRuntime, NodeRuntimeConfig)
 from repro_torch.core import chunking, integrity  # noqa: F401

@@ -339,8 +339,7 @@ class MetadataManager:
     """Centralized manager: file -> versioned block-maps + block registry.
 
     Beyond placement and block-maps, the manager carries the state the
-    storage-node runtime (``core/noderuntime.py``, not yet ported)
-    drives:
+    storage-node runtime (repro_torch.core.noderuntime) drives:
 
     * **reference counts** (``block_refs``): one count per committed
       block-map occurrence, incremented by ``commit_blockmap`` and

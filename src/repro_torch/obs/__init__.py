@@ -1,12 +1,15 @@
-"""Observability for the port: metrics, traces and heartbeats.
+"""Observability for the port: metrics, traces, exporters, health.
 
-Stdlib only, so every layer (engine, SAI, WAL, block store) can import it
-without cycles.  The exporters, time series and HTTP endpoint of the JAX
-package's ``obs`` come with the serving plane.
+``obs`` is dependency-free (stdlib only) so every layer — engine, SAI,
+WAL, block store, node runtime, gateway, transport — can import it
+without cycles.  Metric names, the ``repro`` Prometheus namespace and
+the health verdict rules are those of docs/OBSERVABILITY.md, so
+dashboards carry over unchanged between the JAX package and the port.
 """
 
 from .metrics import Counter, CounterGroup, Gauge, Histogram, MetricsRegistry
 from .trace import Span, Trace, Tracer
+from .export import dump_slow_log, flatten, prometheus_text, truncate_tree
 from .health import (
     Heartbeat,
     HeartbeatBoard,
@@ -16,6 +19,8 @@ from .health import (
     STATUS_OK,
     STATUS_WARN,
 )
+from .timeseries import MetricsSampler
+from .httpexport import HealthHTTPServer
 
 __all__ = [
     "Counter",
@@ -26,10 +31,16 @@ __all__ = [
     "Span",
     "Trace",
     "Tracer",
+    "dump_slow_log",
+    "flatten",
+    "prometheus_text",
+    "truncate_tree",
     "Heartbeat",
     "HeartbeatBoard",
     "HealthConfig",
     "HealthEngine",
+    "HealthHTTPServer",
+    "MetricsSampler",
     "STATUS_CRITICAL",
     "STATUS_OK",
     "STATUS_WARN",
