@@ -3,7 +3,7 @@
 GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
-CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs seven phases,
+CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs eight phases,
 each printing its results:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
@@ -64,7 +64,26 @@ each printing its results:
    blocks, found by a scrub on the engine's scrub lane, repaired and
    scrubbed clean; the gateway's write latencies with the runtime paused
    and sweeping; and a durable gateway (``ca='cdc'``, stride 1) closed and
-   reopened, its recovery suspects scrubbed on the card.
+   reopened, its recovery suspects scrubbed on the card;
+8. the engine mesh on one card: a ``CrystalGPU`` of four managers on
+   ``cuda:0``, each with its own CUDA stream, writes the first two images
+   of phase 4's series under ``fixed``, ``cdc-gear`` and ``cdc`` at stride
+   1 with whale jobs sharded across the managers, every block map and
+   digest equal to phase 4's one-manager engine, and the write MB/s of
+   one manager and of four on the same images; four direct jobs of phase
+   6's md5 shape at once on one manager and on four, digests equal, and
+   their four ``md5_direct`` launches alone on one stream and on four; a
+   50 ms delay on manager 0's launches, which must then take under a
+   third of 30 paced jobs, and a crash of manager 0 (its batch fails,
+   every other job is right, one restart, and it serves again); the read
+   path on the mesh: a read cache that serves a second verified read of
+   a 256 MiB version with no ``md5`` launch, a quarantined block fetched
+   and verified again, and 16 seeded ``read_range`` requests (two at
+   EOF) equal to slices of the full read, verified on the card and
+   proved against the version's Merkle root; and each kind's seeded and
+   regressed launch-cost model.  Phase 4 prints the regressed cost model
+   of its writes and reads, the seeds of
+   ``repro_torch.roofline.analysis``.
 
 Any failed check raises, so the script exits non-zero.  The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -168,6 +187,21 @@ TENANTS = [(f"tenant{i}", "interactive" if i < 2 else "batch", 1 + i)
            for i in range(4)]
 # stored blocks of node 1 whose copy there phase 7 corrupts
 SCRUB_CORRUPT = 8
+# phase 8: the engine mesh on one card, four managers on cuda:0, each with
+# its own CUDA stream.  (a) the first two images of phase 4's series under
+# three of its configurations (md5_direct, gear and sliding_md5 at stride
+# 1); (b) four direct jobs of phase 6's md5 shape at once (64 messages of
+# 1 MiB + 4 B); (c) paced single-row jobs with a launch delay on manager
+# 0, then a crash of manager 0; (d) a read cache that holds a whole image,
+# and seeded read_range requests
+MESH_MANAGERS = 4
+MESH_IMAGES = 2
+MESH_CONFIGS = ("fixed", "cdc-gear", "cdc-stride1")
+MESH_JOBS, MESH_ROWS, MESH_ROW_BYTES = 4, 64, MiB + 4
+SLOW_JOBS, SLOW_DELAY_S, SLOW_PACE_S, ROW_BYTES = 30, 0.05, 0.01, 4096
+CRASH_JOBS = 12
+READ_CACHE_BYTES = 512 * MiB
+N_RANGES = 16
 
 
 def ops_per_compression(const_words: int = 0, final_adds: int = 4) -> int:
@@ -666,7 +700,13 @@ def write_read(torch, np, eng, series, ca: str):
     return sai, mgr, nodes, out
 
 
-def phase_main_path(torch, np, series):
+def block_maps(mgr, n_versions: int):
+    """Each version's block map of ``/ckpt``: (digest, length) per block."""
+    return [[(b.digest, b.length) for b in mgr.get_blockmap("/ckpt", v).blocks]
+            for v in range(n_versions)]
+
+
+def phase_main_path(torch, np, series, smi: str):
     print("== phase 4: main path (SAI write/read through CrystalGPU)")
     from repro_torch.core import SAI, CrystalGPU, SAIConfig
     from repro_torch.kernels import gear, md5, sliding_md5
@@ -686,6 +726,11 @@ def phase_main_path(torch, np, series):
             per[ca] = {n: c.value - before[n] for n, c in counters.items()}
             print(f"{ca}: kernel launches {per[ca]}")
         launches = {n: c.value for n, c in counters.items()}
+        # the engine's own launch cost per kind, regressed over these
+        # writes and reads: the seeds of roofline.analysis.H100_LAUNCH_COST
+        cost = eng.snapshot_stats()["cost_model"]
+        print(f"cost model after phase 4's writes and reads [{smi}]: "
+              + json.dumps({k: cost[k] for k in sorted(cost)}))
         largest = gear.LAUNCHES.largest_shape
         largest_bytes = gear.LAUNCHES.largest_bytes
         print(f"main path kernel launches: {launches}")
@@ -764,13 +809,15 @@ def phase_main_path(torch, np, series):
         print(f"corrupted replica of block {digest.hex()[:8]} on node "
               f"{nid}: read refetched ({sai.read_stats['refetches']} "
               f"refetches)")
+        maps = {ca: block_maps(kept[ca][1], MESH_IMAGES)
+                for ca in MESH_CONFIGS}
         for sai_, *_ in kept.values():
             sai_.close()
 
         phase_durable(eng, series[0][:DURABLE_BYTES])
     finally:
         eng.shutdown()
-    return launches, largest
+    return launches, largest, maps
 
 
 def phase_durable(eng, img: bytes):
@@ -1470,6 +1517,310 @@ def phase_serving(torch, np, smi: str, image_bytes: int = GATEWAY_BYTES):
     return launches
 
 
+def overlap_ms(torch, dev, md5, rows, smi: str):
+    """The kernels of phase 8 (b)'s jobs alone: one ``md5_direct`` launch
+    per job on one stream and on a stream each, CUDA events around all of
+    them (median of 3, in turns).  How many launches the card overlaps."""
+    words = [torch.from_numpy(r).to(dev).view(torch.uint32) for r in rows]
+    lens = torch.full((len(rows[0]),), words[0].shape[1], dtype=torch.int32,
+                      device=dev)
+    streams = [torch.cuda.Stream(dev) for _ in words]
+
+    def run(n_streams):
+        main = torch.cuda.current_stream(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(main)
+        outs = []
+        for i, w in enumerate(words):
+            s = streams[i] if n_streams > 1 else main
+            s.wait_stream(main)
+            outs.append(md5.md5_words(w, lens, stream=s))
+        for s in streams:
+            main.wait_stream(s)
+        end.record(main)
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end), outs
+
+    times = {1: [], len(words): []}
+    outs = {}
+    for n in (1, len(words)) * 4:           # the first of each warms up
+        ms, outs[n] = run(n)
+        times[n].append(ms)
+    for a, b in zip(outs[1], outs[len(words)]):
+        check(words_equal(a, b), "md5 on one stream == on four")
+    one, many = (statistics.median(times[n][1:]) for n in times)
+    print(f"{len(words)} md5_direct launches of {len(rows[0])} messages x "
+          f"{words[0].shape[1]} words, kernels alone: {one:.3f} ms on one "
+          f"stream, {many:.3f} ms on {len(words)} streams ({one / many:.2f}"
+          f"x) [{smi}]")
+
+
+def phase_mesh(torch, np, images, maps, smi: str, dev=None):
+    """Phase 8: the engine mesh (four managers and streams on one card)
+    and the read path.  ``maps`` holds phase 4's block maps of ``images``
+    under each of ``MESH_CONFIGS``.  Returns the hashing kernels' launches
+    over (a)."""
+    print("== phase 8: engine mesh (four managers, each with its own "
+          "stream, on one card) and the read path")
+    import threading
+    from repro_torch.core import SAI, CrystalGPU, SAIConfig, make_store
+    from repro_torch.core import integrity
+    from repro_torch.core.sai import block_digest_cpu
+    from repro_torch.kernels import gear, md5, sliding_md5
+    from repro_torch.roofline.analysis import HASH_OPS_PER_BYTE, \
+        hash_cost_seed
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def md5_rows(rows):
+        return np.stack([np.frombuffer(hashlib.md5(r.tobytes()).digest(),
+                                       np.uint8) for r in rows])
+
+    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+                "gear": gear.LAUNCHES}
+    one = CrystalGPU(devices=[dev])
+    mesh = CrystalGPU(devices=[dev] * MESH_MANAGERS)
+    try:
+        # (a) whale sharding: each image's hash jobs split across the four
+        # managers' streams; block maps and digests as one manager's
+        for c in counters.values():
+            c.reset()
+        total = sum(len(img) for img in images)
+        for ca in MESH_CONFIGS:
+            rates = {}
+            for eng in (one, mesh):
+                mgr, _ = make_store(4, replication=2)
+                sai = SAI(mgr, SAIConfig(**CONFIGS[ca]), crystal=eng)
+                s0 = eng.snapshot_stats()
+                t0 = time.perf_counter()
+                futs = [sai.write_async("/ckpt", img) for img in images]
+                for f in futs:
+                    f.result(timeout=900)
+                sync()
+                rates[len(eng.devices)] = total / (time.perf_counter()
+                                                   - t0) / 1e6
+                s1 = eng.snapshot_stats()
+                sai.close()
+                check(block_maps(mgr, len(images)) == maps[ca],
+                      f"{ca}, {len(eng.devices)} manager(s): every block "
+                      f"map and digest == phase 4's one-manager engine")
+            sharded = s1["sharded_jobs"] - s0["sharded_jobs"]
+            shards = s1["shards"] - s0["shards"]
+            busy = [i for i, d in s1["per_device"].items()
+                    if d["jobs"] > s0["per_device"][i]["jobs"]]
+            check(sharded >= 1 and shards >= 2 and len(busy) >= 2,
+                  f"{ca}: {sharded} sharded jobs, {shards} shards, "
+                  f"managers with jobs {busy}")
+            print(f"{ca}: {len(images)} x {len(images[0]) // MiB} MiB "
+                  f"written at {rates[1]:.1f} MB/s on 1 manager, "
+                  f"{rates[MESH_MANAGERS]:.1f} MB/s on {MESH_MANAGERS} "
+                  f"[{smi}]; block maps identical; {sharded} sharded jobs "
+                  f"in {shards} shards, managers with jobs {busy}")
+        launches = {n: c.value for n, c in counters.items()}
+        print(f"phase 8 (a) kernel launches: {launches}")
+        check(all(n > 0 for n in launches.values()),
+              "every hashing kernel launched in phase 8 (a)")
+
+        # (b) four independent direct jobs at once: one manager's stream
+        # against four
+        rng = np.random.default_rng(8)
+        rows = [rng.integers(0, 256, (MESH_ROWS, MESH_ROW_BYTES), np.uint8)
+                for _ in range(MESH_JOBS)]
+        digests = {}
+        for eng in (one, mesh):
+            for timed in (False, True):        # the first fills staging
+                s0 = eng.snapshot_stats()
+                t0 = time.perf_counter()
+                jobs = [eng.submit("direct", r, {}) for r in rows]
+                got = [j.wait() for j in jobs]
+                wall = time.perf_counter() - t0
+            s1 = eng.snapshot_stats()
+            digests[len(eng.devices)] = got
+            print(f"{MESH_JOBS} direct jobs of {MESH_ROWS} x "
+                  f"{MESH_ROW_BYTES} B at once on {len(eng.devices)} "
+                  f"manager(s): {wall * 1e3:.1f} ms [{smi}], "
+                  f"{s1['launches'] - s0['launches']} launches, "
+                  f"{s1['shards'] - s0['shards']} shards")
+        for a, b in zip(digests[1], digests[MESH_MANAGERS]):
+            check(np.array_equal(a, b), "direct digests on 4 managers == "
+                  "on 1 manager")
+        for r, d in zip(rows, digests[1]):
+            check(np.array_equal(d[:2], md5_rows(r[:2])),
+                  "direct digests == hashlib")
+        if dev.type == "cuda":
+            overlap_ms(torch, dev, md5, rows, smi)
+        del rows
+
+        # (c) load-aware dispatch away from a slow manager, then a crash
+        row = rng.integers(0, 256, (1, ROW_BYTES), np.uint8)
+        want = md5_rows(row)
+        slow = CrystalGPU(devices=[dev] * MESH_MANAGERS, coalesce=False)
+        slow._launch_hook = lambda idx, batch: (
+            time.sleep(SLOW_DELAY_S) if idx == 0 else None)
+        try:
+            jobs = []
+            for _ in range(SLOW_JOBS):
+                jobs.append(slow.submit("direct", row, {}))
+                time.sleep(SLOW_PACE_S)
+            for j in jobs:
+                check(np.array_equal(j.wait(), want), "paced job digest")
+            per = slow.snapshot_stats()["per_device"]
+        finally:
+            slow.shutdown()
+        spread = {i: d["jobs"] for i, d in per.items()}
+        check(sum(spread.values()) == SLOW_JOBS
+              and spread[0] < SLOW_JOBS / 3,
+              f"the slow manager 0 gets under a third of {SLOW_JOBS} "
+              f"jobs: {spread}")
+        print(f"load-aware dispatch, {SLOW_DELAY_S * 1e3:.0f} ms added to "
+              f"manager 0's launches: jobs per manager {spread}")
+        crash = CrystalGPU(devices=[dev] * MESH_MANAGERS, coalesce=False)
+        fired = threading.Event()
+
+        def fault(idx, batch):
+            if idx == 0 and not fired.is_set():
+                fired.set()
+                raise RuntimeError("injected manager crash")
+
+        crash._fault_hook = fault
+        try:
+            jobs = [crash.submit("direct", row, {})
+                    for _ in range(CRASH_JOBS)]
+            failed = 0
+            for j in jobs:
+                j.done.wait(timeout=600)
+                if j.error is not None:
+                    check("injected manager crash" in str(j.error),
+                          f"a failed job carries the crash: {j.error!r}")
+                    failed += 1
+                else:
+                    check(np.array_equal(j.result, want),
+                          "every other job's digest is right")
+            st = crash.snapshot_stats()
+            check(fired.is_set() and failed >= 1,
+                  f"the crashed batch failed ({failed} jobs)")
+            check(st["manager_restarts"] == 1
+                  and st["per_device"][0]["manager_restarts"] == 1,
+                  f"one manager restart: {st['manager_restarts']}")
+            served = None
+            for _ in range(4 * MESH_MANAGERS):
+                j = crash.submit("direct", row, {})
+                check(np.array_equal(j.wait(), want), "job after restart")
+                if j.device_index == 0:
+                    served = j
+                    break
+            check(served is not None, "the restarted manager 0 serves a "
+                  "further job")
+            check(crash.queue_depth() == 0, "no job stranded")
+        finally:
+            crash.shutdown()
+        print(f"crash of manager 0: {failed} job(s) of its batch failed, "
+              f"{CRASH_JOBS - failed} right, manager_restarts "
+              f"{st['manager_restarts']}, manager 0 served a job after it")
+
+        # (d) the read path on the mesh: read cache, quarantine, ranges
+        img = images[0]
+        mgr, nodes = make_store(4, replication=2)
+        sai = SAI(mgr, SAIConfig(ca="fixed",
+                                 read_cache_bytes=READ_CACHE_BYTES),
+                  crystal=mesh)
+        sai.write("/ckpt", img)
+        t0 = time.perf_counter()
+        check(sai.read("/ckpt") == img, "first verified read")
+        t_miss = time.perf_counter() - t0
+
+        def gets():
+            return sum(n.get_count for n in nodes)
+
+        l0, j0, g0 = md5.LAUNCHES.value, mesh.stats["jobs"], gets()
+        t0 = time.perf_counter()
+        check(sai.read("/ckpt") == img, "cached verified read")
+        t_hit = time.perf_counter() - t0
+        check(md5.LAUNCHES.value == l0 and mesh.stats["jobs"] == j0
+              and gets() == g0, "a cached re-read adds no md5 launch, job "
+              "or node fetch")
+        fv = mgr.get_blockmap("/ckpt")
+        digest = fv.blocks[1].digest
+        mgr.quarantine_block(digest, mgr.block_registry[digest][0])
+        check(digest not in sai._cache, "quarantine evicts the block")
+        l0, g0 = md5.LAUNCHES.value, gets()
+        check(sai.read("/ckpt") == img, "read after the quarantine")
+        check(gets() > g0 and digest in sai._cache
+              and md5.LAUNCHES.value > l0,
+              "the quarantined block is fetched and verified again")
+        print(f"read cache {READ_CACHE_BYTES // MiB} MiB: verified read of "
+              f"{len(img) // MiB} MiB {len(img) / t_miss / 1e6:.1f} MB/s, "
+              f"cached {len(img) / t_hit / 1e6:.1f} MB/s [{smi}], no md5 "
+              f"launch; quarantined block {digest.hex()[:8]} fetched and "
+              f"verified again ({sai.read_stats['cache_invalidations']} "
+              f"invalidation)")
+        sai.close()
+        # each range fetched and verified on the card (no cache), and its
+        # covering blocks' hashlib digests proved against the root here
+        plain = SAI(mgr, SAIConfig(ca="fixed"), crystal=mesh)
+        leaves = [b.digest for b in fv.blocks]
+        check(integrity.merkle_root(leaves) == fv.merkle_root,
+              "the block map's root")
+        starts = np.cumsum([0] + [b.length for b in fv.blocks])
+        n = len(img)
+        rr = np.random.default_rng(9)
+        ranges = [(int(rr.integers(0, n)), int(rr.integers(1, 8 * MiB)))
+                  for _ in range(N_RANGES - 2)]
+        ranges += [(n - 12345, 12345), (n - 100, 8 * MiB)]   # EOF edges
+        l0 = md5.LAUNCHES.value
+        t0 = time.perf_counter()
+        for off, ln in ranges:
+            got = plain.read_range("/ckpt", off, ln)
+            check(got == img[off:off + ln], f"read_range({off}, {ln})")
+            first = int(np.searchsorted(starts, off, side="right")) - 1
+            last = int(np.searchsorted(starts, min(off + ln, n),
+                                       side="left"))
+            for i in range(first, last):
+                blk = img[starts[i]:starts[i + 1]]
+                check(integrity.merkle_verify(
+                    block_digest_cpu(blk), i,
+                    integrity.merkle_proof(leaves, i), fv.merkle_root),
+                    f"block {i} of read_range({off}, {ln}) proved "
+                    f"against the root")
+        t_ranges = time.perf_counter() - t0
+        check(md5.LAUNCHES.value - l0 >= len(ranges),
+              "every range verified on the card")
+        check(plain.read_range("/ckpt", n, 10) == b"", "a range at EOF is "
+              "empty")
+        try:
+            plain.read_range("/ckpt", n + 1, 10)
+            check(False, "a range past EOF raises")
+        except ValueError:
+            pass
+        plain.close()
+        print(f"read_range: {len(ranges)} seeded ranges (two at EOF) equal "
+              f"the full read, each verified on the card and its blocks "
+              f"proved against FileVersion.merkle_root, in {t_ranges:.2f} "
+              f"s; at EOF empty, past EOF ValueError")
+
+        # (e) the cost model: the H100 seeds and the mesh's regression
+        cost = mesh.snapshot_stats()["cost_model"]
+        for kind in HASH_OPS_PER_BYTE:
+            seed = hash_cost_seed(kind)
+            now = cost.get(kind, {})
+            print(f"cost model {kind}: seeded (overhead "
+                  f"{seed['launch_overhead_s']:.4g} s, "
+                  f"{seed['sec_per_byte']:.4g} s/B), regressed on the mesh "
+                  f"(overhead {now.get('overhead_s', float('nan')):.4g} s, "
+                  f"{now.get('sec_per_byte', float('nan')):.4g} s/B, "
+                  f"{now.get('observations', 0)} launches) [{smi}]")
+    finally:
+        one.shutdown()
+        mesh.shutdown()
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1486,7 +1837,8 @@ def main() -> int:
     print(f"checkpoint series: {N_IMAGES} x {IMAGE_BYTES // MiB} MiB "
           f"(seed 0, change_frac 0.15) made in "
           f"{time.perf_counter() - t0:.1f} s")
-    launches, gear_largest = phase_main_path(torch, np, series)
+    launches, gear_largest, maps = phase_main_path(torch, np, series, smi)
+    mesh_images = series[:MESH_IMAGES]
     del series
     phase_checkpoint(torch, np, dev)
     times, flash_launches = phase_times(torch, np, dev, sm_clocks, pipes,
@@ -1494,6 +1846,8 @@ def main() -> int:
     launches.update(flash_launches)
     serving_launches = phase_serving(torch, np, smi)
     print(f"phase 7 kernel launches: {serving_launches}")
+    mesh_launches = phase_mesh(torch, np, mesh_images, maps, smi)
+    print(f"phase 8 kernel launches: {mesh_launches}")
     kernels = []
     for name, counter, source, replaces in [
             ("md5_direct", "md5", "src/repro_torch/kernels/csrc/md5.cu",

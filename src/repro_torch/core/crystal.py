@@ -26,9 +26,9 @@ Engine mesh (this module's multi-device structure):
 
   dispatch   — each submitted job carries a cost estimate from the
                :class:`KernelCostModel` (seconds ~ overhead +
-               sec_per_byte * padded_bytes, started from static values
-               and EWMA-regressed online from measured launch wall
-               times).
+               sec_per_byte * padded_bytes, seeded from the H100
+               launch costs in ``repro_torch.roofline.analysis`` and
+               EWMA-regressed online from measured launch wall times).
                The dispatcher scores every device by
                ``pending_s * slowdown`` — its queued model-seconds
                backlog times an EWMA of observed-vs-estimated launch
@@ -122,6 +122,7 @@ import torch
 from repro_torch.kernels import gear, md5, ops, sliding_md5
 from repro_torch.obs import HeartbeatBoard
 from repro_torch.obs import metrics as metrics_mod
+from repro_torch.roofline.analysis import HASH_OPS_PER_BYTE, hash_cost_seed
 
 
 LANES = ("fg", "batch", "scrub")       # dequeue priority, highest first
@@ -256,23 +257,26 @@ def _normalize_direct(data: np.ndarray, meta: Dict[str, Any]):
     return rows, lens
 
 
-# kind -> (sec_per_byte, launch_overhead_s): static start values for the
-# cost model, not measurements.  They only order the first dispatch
-# decisions; the online EWMA regression of measured launch wall times
-# replaces them after two launches of a kind.
+# kind -> (sec_per_byte, launch_overhead_s): the cost model's start, the
+# engine's launch costs as measured on an H100 (roofline.analysis).  They
+# order the first dispatch decisions; the online EWMA regression of
+# measured launch wall times replaces them after two launches of a kind.
+_COST_START = {kind: (seed["sec_per_byte"], seed["launch_overhead_s"])
+               for kind, seed in ((k, hash_cost_seed(k))
+                                  for k in HASH_OPS_PER_BYTE)}
+# the start of a kind that has no seed
 _COST_DEFAULT = (1e-9, 1e-3)
-_COST_START = {kind: _COST_DEFAULT
-               for kind in ("direct", "sliding", "gear")}
 
 
 class KernelCostModel:
     """Online launch-cost model: ``wall ~= overhead + sec_per_byte *
     padded_bytes`` per job kind.  Parameters come from an EWMA linear
     regression of measured launch wall time on padded staging bytes,
-    started from static values (``_COST_START``) until two launches of
-    a kind were measured.  When the observed byte sizes are degenerate
-    (every launch the same size) the slope stays at the start value and
-    only the intercept is measured."""
+    seeded from the H100 launch costs of ``roofline.analysis``
+    (``_COST_START``) so the very first dispatch decisions are already
+    scale-aware.  When the observed byte sizes are degenerate (every
+    launch the same size) the slope falls back to the seed and only the
+    intercept is measured."""
 
     def __init__(self, seeds: Optional[Dict[str, Tuple[float, float]]]
                  = None, alpha: float = 0.2):

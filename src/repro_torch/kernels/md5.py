@@ -14,6 +14,7 @@ row: ``lens_w <= W`` with no spare words.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -25,6 +26,13 @@ LAUNCHES = _build.LaunchCounter("md5")
 
 _WORD_DTYPES = (torch.uint32, torch.int32)
 
+# The plain version issues hundreds of small torch ops per 64-byte chunk,
+# each of which releases and retakes the interpreter lock.  Threads that
+# run it at once (the managers of a mesh of CPU devices) convoy on that
+# lock: four of them took about ten times longer than taking turns.  So
+# they take turns.
+_PLAIN_TURN = threading.Lock()
+
 
 def to_uint32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2**32) -> uint32 tensor of the same bits."""
@@ -35,7 +43,8 @@ def to_uint32(x: torch.Tensor) -> torch.Tensor:
 def md5_plain(words: torch.Tensor, lens_w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on the tensors' own device:
     [B, W] words + [B] word lengths -> [B, 4] uint32 digest words."""
-    return to_uint32(md5_words_ref(words, lens_w.to(words.device)))
+    with _PLAIN_TURN:
+        return to_uint32(md5_words_ref(words, lens_w.to(words.device)))
 
 
 def md5_words(words: torch.Tensor, lens_w: torch.Tensor,

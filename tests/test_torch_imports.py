@@ -61,7 +61,12 @@ def test_every_port_module_is_checked():
     for want in ("src/repro_torch/core/noderuntime.py",
                  "src/repro_torch/serve/storage_client.py",
                  "src/repro_torch/serve/transport.py",
-                 "src/repro_torch/obs/httpexport.py", "chip_smoke.py"):
+                 "src/repro_torch/obs/httpexport.py",
+                 "src/repro_torch/configs/__init__.py",
+                 "src/repro_torch/configs/llama3_8b.py",
+                 "src/repro_torch/roofline/analysis.py",
+                 "src/repro_torch/analysis/engine.py",
+                 "src/repro_torch/analysis/__main__.py", "chip_smoke.py"):
         assert want in rel
 
 

@@ -3,8 +3,9 @@ against its plain version and ``hashlib`` or ``_cpu_gear``, bit for bit,
 flash attention against its plain version (f32 within the JAX package's
 2e-5, also on rows of 16384 and 32768 keys; bf16 and f16 within the bound
 derived from their rounding), the f32 flash
-kernel's TF32 pre-pass against its plain version bit for bit, and two managers
-sharing one card through their own streams.  Every test here needs an
+kernel's TF32 pre-pass against its plain version bit for bit, two managers
+sharing one card through their own streams, and a whale job sharded across
+four managers of one card.  Every test here needs an
 NVIDIA GPU and ``nvcc``; without them it skips.  Run on a GPU machine with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py``
 (this file imports neither JAX nor the JAX package)."""
@@ -130,6 +131,29 @@ def test_two_managers_on_one_card_write_and_read(cuda, rng):
         assert eng.snapshot_stats()["launches"] > 0
     finally:
         eng.shutdown()
+
+
+def test_forced_multi_device_sharding_cuda(cuda):
+    """The JAX package's forced four-device sharding test on one card: a
+    whale direct job split across four managers, each launching on its
+    own stream; the shards' digests reassemble to hashlib's."""
+    rng = np.random.default_rng(3)
+    rows = rng.integers(0, 256, (16, 8192), np.uint8)
+    ref = np.stack([np.frombuffer(
+        hashlib.md5(r.tobytes()).digest(), np.uint8) for r in rows])
+    eng = CrystalGPU(devices=[cuda] * 4, shard_min_bytes=32 << 10)
+    try:
+        assert len({s.stream for s in eng._dev_states}) == 4
+        before = md5.LAUNCHES.value
+        got = eng.submit("direct", rows, {}).wait()
+        st = eng.snapshot_stats()
+    finally:
+        eng.shutdown()
+    assert np.array_equal(got, ref)
+    assert st["sharded_jobs"] == 1, st
+    busy = [i for i, d in st["per_device"].items() if d["jobs"]]
+    assert len(busy) >= 2, st["per_device"]
+    assert md5.LAUNCHES.value - before == st["launches"] >= 2
 
 
 @pytest.mark.parametrize("lens", [[1, 31, 32, 33, 4099], [1 << 20]])
