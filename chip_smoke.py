@@ -3,7 +3,7 @@
 GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
-CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs eight phases,
+CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs nine phases,
 each printing its results:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
@@ -83,7 +83,21 @@ each printing its results:
    proved against the version's Merkle root; and each kind's seeded and
    regressed launch-cost model.  Phase 4 prints the regressed cost model
    of its writes and reads, the seeds of
-   ``repro_torch.roofline.analysis``.
+   ``repro_torch.roofline.analysis``;
+9. the LM serving path (``repro_torch.models``, ``repro_torch.serve``):
+   the serving CLI ``repro_torch.launch.serve`` on llama3-8b at its
+   published widths and depth with bf16 weights from a seed, a prefill
+   of 4 prompts of 4096 tokens (two query blocks) and 32 greedy decode
+   steps after a warm-up, prefill tok/s and the median decode step
+   beside their bounds and the peak memory; a ``ContinuousBatcher`` of 4 slots
+   serving 8 seeded requests (mean TTFT, steps).  Checks: decode against
+   the full forward at full width in f32 compute, the batcher's logits
+   against sequential decoding within a bound from bf16 rounding (tokens
+   equal where the margin allows), the card against the CPU (llama3-8b's
+   widths in 2 layers, f32), mamba2-1.3b at full width and mixtral-8x7b's
+   widths in 2 layers (prefill, 8 decode steps, decode against forward),
+   and every architecture's smoke config on the card against the CPU.
+   It fails if it launched any of the ported kernels.
 
 Any failed check raises, so the script exits non-zero.  The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -93,13 +107,17 @@ code 2 and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1821,6 +1839,405 @@ def phase_mesh(torch, np, images, maps, smi: str, dev=None):
     return launches
 
 
+# phase 9: LM serving.  (a) the serving CLI, python -m
+# repro_torch.launch.serve with LM_ARGV: llama3-8b at its published widths
+# and depth, bf16 weights from seed LM_SEED on the card, a prefill of 4
+# prompts of 4096 tokens (two query blocks of 2048), then 32 greedy decode
+# steps (33 new tokens, the first from the prefill); (b) a
+# ContinuousBatcher of BATCHER_SLOTS slots serving BATCHER_REQUESTS seeded
+# requests; (c) checks (see phase_lm)
+LM_SEED = 0
+LM_ARGV = ["--arch", "llama3-8b", "--preset", "full", "--batch", "4",
+           "--prompt-len", "4096", "--new-tokens", "33", "--param-dtype",
+           "bfloat16", "--seed", str(LM_SEED)]
+BATCHER_SLOTS, BATCHER_REQUESTS = 4, 8
+BATCHER_PROMPTS, BATCHER_NEW = (128, 2048), (8, 32)
+# decode against the full forward: prefill(S) + decode(1) against
+# forward(S + 1) at the last position, within DECODE_TOL x max|logit|
+# (the reference's test_decode_matches_full_forward, 2e-3)
+DECODE_S, DECODE_B, DECODE_TOL = 511, 2, 2e-3
+# the card against the CPU: llama3-8b's widths cut to CARD_CPU_LAYERS
+# layers, f32 on both, forward logits within CARD_CPU_TOL x max|logit|
+CARD_CPU_LAYERS, CARD_CPU_S, CARD_CPU_TOL = 2, 64, 1e-4
+# the other full-width paths: mamba2-1.3b at full depth (prompt a multiple
+# of its chunk of 256), mixtral-8x7b at its widths cut to MIXTRAL_LAYERS
+# layers; each a prefill and OTHER_DECODE decode steps
+MAMBA_B, MAMBA_S = 2, 512
+MIXTRAL_LAYERS, MIXTRAL_B, MIXTRAL_S = 2, 2, 512
+OTHER_DECODE = 8
+# bf16: a unit roundoff, relative, for the batcher-against-sequential bound
+BF16_U = 2.0 ** -8
+
+
+@contextlib.contextmanager
+def lm_variant(model, cfg=None, cdt=None):
+    """Run ``model`` with another config (same widths) or compute dtype
+    on the same weights, restored after."""
+    saved = model.cfg, model.cdt
+    model.cfg = cfg or model.cfg
+    model.cdt = cdt or model.cdt
+    try:
+        yield model
+    finally:
+        model.cfg, model.cdt = saved
+
+
+def decode_vs_forward(torch, model, gen, B: int, S: int, what: str):
+    """prefill(S) + decode(1) logits against forward(S + 1) at the last
+    position, within DECODE_TOL x max|logit|."""
+    dev = model.device
+    toks = torch.randint(0, model.cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev)
+    cache, _ = model.prefill(toks[:, :S], capacity=model.capacity_for(S + 1))
+    _, lg = model.decode_step(cache, toks[:, S:], S)
+    del cache
+    with torch.inference_mode():
+        full, _ = model.forward(toks)
+    want = full[:, -1]
+    err = float((lg - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"{what}: decode against forward, prefill({S}) + decode(1) vs "
+          f"forward({S + 1}), B {B}: max abs err {err:.3e}, max|logit| "
+          f"{scale:.3e}, ratio {err / scale:.2e} (limit {DECODE_TOL})")
+    check(err <= DECODE_TOL * scale, f"{what}: decode against forward")
+    return err / scale
+
+
+def served(torch, model, res, what: str):
+    """Checks on ``launch.serve.serve``'s result: finite last logits of
+    the vocabulary's width, tokens in the vocabulary."""
+    B, n_new = res["tokens"].shape
+    V = model.cfg.vocab_size
+    check(bool(torch.isfinite(res["logits"]).all()),
+          f"{what}: logits finite")
+    check(res["logits"].shape == (B, V), f"{what}: logits shape")
+    check(bool(((res["tokens"] >= 0) & (res["tokens"] < V)).all()),
+          f"{what}: tokens in the vocabulary")
+    check(len(res["step_s"]) == n_new - 1, f"{what}: one time per step")
+
+
+def batcher_vs_sequential(torch, np, model, cb, rec, reqs, smi: str):
+    """(c) The batcher's logits, teacher-forced, against decoding each
+    request alone: its own prefill at the batcher's capacity, then its
+    tokens one at a time, (1) at batch 1, as ``greedy_generate`` runs it,
+    and (2) with the prefill's cache copied to the batcher's slot count,
+    so that every product has the batcher's shapes.
+
+    (1) The two run the same bf16 ops on the same values, but a product
+    of another batch size may sum in another order, so a rounded output
+    can land one bf16 ulp (relative u = 2**-8) apart.  The residual
+    stream and the logits go through 2L + 1 rounded adds (the 2L sublayer
+    outputs, the head); taken as independent, such differences add in
+    quadrature, sqrt(2L + 1) u relative to the largest logit.  The bound
+    is twice that, 2 sqrt(2L + 1) u max|logit|; tokens must be equal
+    wherever the batch-1 top-2 margin exceeds twice the bound.
+    (2) Rows of a product do not depend on each other, so at the same
+    shapes the logits must be equal bit for bit, and every token too:
+    batching, ragged positions and slot reuse add no error."""
+    L = model.cfg.num_layers
+    k_tol = 2 * math.sqrt(2 * L + 1) * BF16_U
+    worst, below, steps, n_tok = 0.0, 0, 0, 0
+    for req in reqs:
+        prompt = torch.from_numpy(req.prompt).to(model.device)
+        one, lg = model.prefill(prompt[None], capacity=cb.capacity)
+        wide = {key: {name: t.repeat(1, cb.B, *([1] * (t.ndim - 2)))
+                      for name, t in group.items()}
+                for key, group in one.items()}
+        seq, same = [lg[0]], [lg[0]]
+        for i, t in enumerate(req.out_tokens[:-1]):
+            tok = torch.tensor([[t]], device=model.device)
+            pos = len(req.prompt) + i
+            one, lg = model.decode_step(one, tok, pos)
+            seq.append(lg[0])
+            wide, lg = model.decode_step(wide, tok.expand(cb.B, 1), pos)
+            same.append(lg[0])
+        del one, wide
+        got = rec[req.rid]
+        check(len(got) == len(seq) == len(req.out_tokens),
+              f"request {req.rid}: one logits row per token")
+        for i, (b, s, w) in enumerate(zip(got, seq, same)):
+            check(torch.equal(b, w), f"request {req.rid} token {i}: "
+                  f"batcher logits == alone at the batcher's shapes")
+            check(req.out_tokens[i] == int(torch.argmax(w)),
+                  f"request {req.rid} token {i}: batcher token == alone")
+            tol = k_tol * float(s.abs().max())
+            err = float((b - s).abs().max())
+            worst = max(worst, err / tol)
+            check(err <= tol, f"request {req.rid} token {i}: batcher "
+                  f"logits within {k_tol:.4f} max|logit| of batch 1 "
+                  f"({err:.3e} > {tol:.3e})")
+            top2 = torch.topk(s, 2).values
+            steps += 1
+            if float(top2[0] - top2[1]) > 2 * tol:
+                n_tok += 1
+                check(req.out_tokens[i] == int(torch.argmax(s)),
+                      f"request {req.rid} token {i}: batcher token == "
+                      f"batch-1 argmax")
+            else:
+                below += 1
+    print(f"(c) batcher against each request alone [{smi}]: {steps} "
+          f"logits rows of {len(reqs)} requests.  At the batcher's shapes "
+          f"equal bit for bit, every token equal.  At batch 1 within "
+          f"2 sqrt(2L+1) u max|logit| = {k_tol:.4f} max|logit| (worst at "
+          f"{worst:.3f} of it, {worst * k_tol / BF16_U:.2f}u); tokens equal "
+          f"at the {n_tok} steps whose top-2 margin exceeds twice that, "
+          f"{below} steps below the margin")
+
+
+def arch_smoke_on_card(torch, np, dev):
+    """(c) Every architecture at its smoke config on the card against the
+    same weights on the CPU (f32, forward logits and prefill + OTHER_DECODE
+    decode steps teacher-forced with the card's tokens, within
+    CARD_CPU_TOL x max|logit|), and decode against the full forward on
+    the card; plus the SWA ring far past a 16-token window."""
+    from repro_torch.configs import ARCH_NAMES, get_smoke_config
+    from repro_torch.models.model import build_model
+    cases = [(a, get_smoke_config(a)) for a in ARCH_NAMES]
+    mix = get_smoke_config("mixtral-8x7b")
+    cases.append(("mixtral-8x7b SWA ring 16", dataclasses.replace(
+        mix, swa_window=16, moe=dataclasses.replace(
+            mix.moe, capacity_factor=100.0))))
+    for name, cfg in cases:
+        cpu = build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(LM_SEED))
+        card = build_model(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        gen = torch.Generator().manual_seed(LM_SEED + 1)
+        F = cfg.frontend_embeds
+        B, S = 2, 40
+        toks = torch.randint(0, cfg.vocab_size, (B, S - F), generator=gen)
+        emb = torch.randn((B, F, cfg.d_model), generator=gen) if F else None
+        errs = []
+        with torch.inference_mode():
+            want, _ = cpu.forward(toks, emb)
+            got, _ = card.forward(toks.to(dev),
+                                  None if emb is None else emb.to(dev))
+        errs.append(float((got.cpu() - want).abs().max())
+                    / float(want.abs().max()))
+        cap = card.capacity_for(S + OTHER_DECODE)      # the ring: 16
+        c_cpu, lg_cpu = cpu.prefill(toks, emb, capacity=cap)
+        c_card, lg_card = card.prefill(
+            toks.to(dev), None if emb is None else emb.to(dev),
+            capacity=cap)
+        errs.append(float((lg_card.cpu() - lg_cpu).abs().max())
+                    / float(lg_cpu.abs().max()))
+        for i in range(OTHER_DECODE):
+            tok = torch.argmax(lg_card, -1)[:, None]
+            c_card, lg_card = card.decode_step(c_card, tok, S + i)
+            c_cpu, lg_cpu = cpu.decode_step(c_cpu, tok.cpu(), S + i)
+            errs.append(float((lg_card.cpu() - lg_cpu).abs().max())
+                        / float(lg_cpu.abs().max()))
+        check(max(errs) <= CARD_CPU_TOL,
+              f"{name} smoke: card against CPU, {max(errs):.2e}")
+        dcfg = cfg
+        if cfg.moe is not None:
+            dcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=100.0))
+        with lm_variant(card, cfg=dataclasses.replace(dcfg,
+                                                      frontend_embeds=0)):
+            rel = decode_vs_forward(torch, card, torch.Generator(
+                dev).manual_seed(LM_SEED), 2, 32, f"{name} smoke")
+        print(f"{name} smoke on the card: card against CPU worst "
+              f"{max(errs):.2e} x max|logit| over forward, prefill and "
+              f"{OTHER_DECODE} decode steps; decode against forward "
+              f"{rel:.2e}")
+
+
+def phase_lm(torch, np, smi: str):
+    """Phase 9: the LM serving path on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn, gear, md5, sliding_md5
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model import build_model
+    from repro_torch.roofline.analysis import (HW, decode_weight_bytes,
+                                               prefill_flops)
+    from repro_torch.serve.scheduler import ContinuousBatcher
+    print("== phase 9: LM serving (llama3-8b at full width and depth, "
+          "continuous batching, decode and card checks)")
+    t_phase = time.perf_counter()
+    check(torch.get_float32_matmul_precision() == "highest",
+          "f32 matmuls in full f32 (no TF32)")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 off")
+    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+                "gear": gear.LAUNCHES, "flash_attn": flash_attn.LAUNCHES,
+                "flash_tf32_split": flash_attn.SPLIT_LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    hw = HW()
+    # what else holds the host: decode is host-bound, so its time per step
+    # moves with the threads left running and the host's load
+    others = sorted(t.name for t in threading.enumerate()
+                    if t is not threading.current_thread())
+    print(f"phase 9 host: {len(others)} other Python threads alive "
+          f"{others[:8]}, load average {os.getloadavg()}, "
+          f"{os.cpu_count()} CPUs")
+
+    # (a) the serving CLI: llama3-8b, bf16 weights at full width and depth
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    print(f"(a) python -m repro_torch.launch.serve {' '.join(LM_ARGV)}")
+    model, res = serve_cli.main(LM_ARGV)
+    cfg, dev = model.cfg, model.device
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"(a) {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}: {n_params} parameters ({n_bytes / 1e9:.2f} GB "
+          f"{cfg.param_dtype}) on {dev}; built, initialised and served in "
+          f"{time.perf_counter() - t0:.1f} s")
+    served(torch, model, res, f"(a) {cfg.name}")
+    B, n_new = res["tokens"].shape
+    S = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
+    t_prefill, steps = res["prefill_s"], res["step_s"]
+    t_step = statistics.median(steps)
+    flops = prefill_flops(cfg, B, S)
+    wbytes = decode_weight_bytes(cfg, 2)
+    kv_bytes = 2 * 2 * cfg.num_layers * B * (S + n_new) \
+        * cfg.kv_heads * cfg.resolved_head_dim
+    pre_bound = flops / hw.peak_flops
+    dec_bound = wbytes / hw.hbm_bw
+    print(f"(a) prefill [{smi}]: {B * S / t_prefill:.1f} tok/s, bound "
+          f"{B * S / pre_bound:.1f} tok/s ({flops:.4e} FLOP at "
+          f"{hw.peak_flops / 1e12:.0f} TFLOP/s, "
+          f"repro_torch.roofline.analysis.prefill_flops: "
+          f"{pre_bound * 1e3:.1f} ms), so {pre_bound / t_prefill:.1%} of it")
+    print(f"(a) decode [{smi}]: median {t_step * 1e3:.3f} ms per step "
+          f"(min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f}, "
+          f"{len(steps)} steps), bound {dec_bound * 1e3:.3f} "
+          f"ms (every weight but the embedding, {wbytes / 1e9:.2f} GB at "
+          f"{hw.hbm_bw / 1e12} TB/s), so {dec_bound / t_step:.1%} of it; "
+          f"with the bf16 KV cache read once ({kv_bytes / 1e9:.2f} GB at "
+          f"the last step) {(wbytes + kv_bytes) / hw.hbm_bw * 1e3:.3f} ms")
+    print(f"(a) peak memory [{smi}]: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+    del res
+    gen = torch.Generator(dev).manual_seed(LM_SEED + 1)
+
+    # (c) decode against the full forward, f32 compute on the bf16 weights
+    with lm_variant(model, cdt=torch.float32):
+        decode_vs_forward(torch, model, gen, DECODE_B, DECODE_S,
+                          f"(c) {cfg.name} f32 compute, bf16 weights")
+
+    # (b) the continuous batcher on the same model
+    rng = np.random.default_rng(LM_SEED)
+    lo, hi = BATCHER_PROMPTS
+    cb = ContinuousBatcher(model, batch_slots=BATCHER_SLOTS,
+                           capacity=hi + BATCHER_NEW[1])
+    rec = collections.defaultdict(list)
+    prefill_one, decode = cb._prefill_one, cb._decode
+    admitted = []
+
+    def record_prefill(t):
+        cache, logits = prefill_one(t)
+        rec[admitted.pop(0)].append(logits[0].clone())
+        return cache, logits
+
+    def record_decode(cache, toks_, pos):
+        cache, logits = decode(cache, toks_, pos)
+        for slot, req in cb.active.items():
+            rec[req.rid].append(logits[slot].clone())
+        return cache, logits
+    cb._prefill_one, cb._decode = record_prefill, record_decode
+    reqs = [cb.submit(rng.integers(0, cfg.vocab_size,
+                                   int(rng.integers(lo, hi + 1))),
+                      int(rng.integers(BATCHER_NEW[0], BATCHER_NEW[1] + 1)))
+            for _ in range(BATCHER_REQUESTS)]
+    admitted.extend(r.rid for r in reqs)
+    t0 = time.perf_counter()
+    finished = cb.run_until_drained()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    st = cb.stats()
+    check(len(finished) == BATCHER_REQUESTS and st["queued"] == 0
+          and st["active"] == 0, "batcher drained every request")
+    check(all(len(r.out_tokens) == r.max_new for r in finished),
+          "each request got its tokens")
+    n_out = sum(len(r.out_tokens) for r in finished)
+    print(f"(b) ContinuousBatcher [{smi}]: {BATCHER_SLOTS} slots, "
+          f"{BATCHER_REQUESTS} requests, prompts "
+          f"{sorted(len(r.prompt) for r in reqs)}, new tokens "
+          f"{[r.max_new for r in reqs]}: {st['steps']} steps, "
+          f"{wall:.2f} s, {n_out / wall:.1f} tok/s, mean TTFT "
+          f"{st['mean_ttft_s'] * 1e3:.1f} ms (all submitted at once)")
+    batcher_vs_sequential(torch, np, model, cb, rec, reqs, smi)
+    del model, cb, rec
+    torch.cuda.empty_cache()
+
+    # (c) the card against the CPU, llama3-8b's widths in 2 layers, f32
+    c2 = dataclasses.replace(
+        get_config("llama3-8b"), num_layers=CARD_CPU_LAYERS,
+        param_dtype="float32", compute_dtype="float32")
+    card = build_model(c2, device=dev).init(
+        torch.Generator(dev).manual_seed(LM_SEED))
+    cpu = build_model(c2, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    toks = torch.randint(0, c2.vocab_size, (1, CARD_CPU_S),
+                         generator=torch.Generator().manual_seed(LM_SEED))
+    with torch.inference_mode():
+        want, _ = cpu.forward(toks)
+        got, _ = card.forward(toks.to(dev))
+    ratio = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+    c_cpu, lg_cpu = cpu.prefill(toks[:, :-1], capacity=CARD_CPU_S)
+    c_card, lg_card = card.prefill(toks[:, :-1].to(dev),
+                                   capacity=CARD_CPU_S)
+    _, d_cpu = cpu.decode_step(c_cpu, toks[:, -1:], CARD_CPU_S - 1)
+    _, d_card = card.decode_step(c_card, toks[:, -1:].to(dev),
+                                 CARD_CPU_S - 1)
+    ratio_d = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                  for a, b in ((lg_card, lg_cpu), (d_card, d_cpu)))
+    print(f"(c) card against CPU: {c2.name} widths, {c2.num_layers} layers, "
+          f"f32 (matmul precision "
+          f"{torch.get_float32_matmul_precision()}), S {CARD_CPU_S}: "
+          f"forward max abs err {ratio:.2e} x max|logit|, prefill and "
+          f"decode {ratio_d:.2e} (limit {CARD_CPU_TOL})")
+    check(max(ratio, ratio_d) <= CARD_CPU_TOL, "card against CPU")
+    del card, cpu, c_cpu, c_card
+    torch.cuda.empty_cache()
+
+    # (c) mamba2-1.3b at full width and depth, mixtral-8x7b in 2 layers,
+    # each through launch.serve.serve (prefill and OTHER_DECODE steps)
+    mixcfg = dataclasses.replace(
+        get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS,
+        param_dtype="bfloat16")
+    for ocfg, B_, S_ in ((get_config("mamba2-1.3b"), MAMBA_B, MAMBA_S),
+                         (mixcfg, MIXTRAL_B, MIXTRAL_S)):
+        om = build_model(ocfg, device=dev).init(
+            torch.Generator(dev).manual_seed(LM_SEED))
+        g = torch.Generator(dev).manual_seed(LM_SEED + 1)
+        what = f"(c) {ocfg.name} ({ocfg.num_layers} layers, d " \
+               f"{ocfg.d_model}, {ocfg.param_dtype} weights)"
+        prompts = torch.randint(0, ocfg.vocab_size, (B_, S_), generator=g,
+                                device=dev)
+        res = serve_cli.serve(om, prompts, OTHER_DECODE + 1)
+        served(torch, om, res, what)
+        print(f"{what}: prefill B {B_} x S {S_} "
+              f"{res['prefill_s'] * 1e3:.1f} ms "
+              f"({B_ * S_ / res['prefill_s']:.0f} tok/s); decode median "
+              f"{statistics.median(res['step_s']) * 1e3:.3f} ms per step "
+              f"over {OTHER_DECODE} steps")
+        dcfg = ocfg
+        if ocfg.moe is not None:
+            dcfg = dataclasses.replace(ocfg, moe=dataclasses.replace(
+                ocfg.moe, capacity_factor=100.0))
+        # mamba: the prefill runs S_ / 256 chunks, the forward one of S_ + 1
+        s_dec = S_ if ocfg.ssm is not None else S_ - 1
+        with lm_variant(om, cfg=dcfg, cdt=torch.float32):
+            decode_vs_forward(torch, om, g, B_, s_dec, what + " f32 compute")
+        del om, res
+        torch.cuda.empty_cache()
+
+    # (c) every architecture at its smoke config on the card
+    arch_smoke_on_card(torch, np, dev)
+    launches = {k: c.value for k, c in counters.items()}
+    print(f"phase 9 kernel launches: {launches} (the LM path calls none of "
+          f"the ported kernels: attention is the reference's plain "
+          f"einsum and softmax)")
+    check(not any(launches.values()),
+          "phase 9 launches none of the ported kernels")
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1848,6 +2265,9 @@ def main() -> int:
     print(f"phase 7 kernel launches: {serving_launches}")
     mesh_launches = phase_mesh(torch, np, mesh_images, maps, smi)
     print(f"phase 8 kernel launches: {mesh_launches}")
+    del mesh_images, maps
+    torch.cuda.empty_cache()
+    phase_lm(torch, np, smi)
     kernels = []
     for name, counter, source, replaces in [
             ("md5_direct", "md5", "src/repro_torch/kernels/csrc/md5.cu",

@@ -1,0 +1,496 @@
+"""Composable decoder LM covering all 10 assigned architectures.
+
+The layer stack is a repeating *pattern* of ``period`` sub-layers (period
+1 for homogeneous archs, 8 for Jamba's 1:7 attention:mamba interleave),
+applied ``n_super = L / period`` times.  The JAX package stacks each
+pattern position's parameters over the superblocks and scans them; here
+each superblock ``j`` is a submodule and the scan is a loop.  Parameter
+names follow the reference's tree: ``blocks.<j>.pos<i>.attn.wq`` is slice
+``j`` of the reference's leaf ``blocks/pos<i>/attn/wq``, so
+``params_from_reference`` / ``params_to_reference`` carry weights across
+mechanically.
+
+The serving cache keeps the reference's stacked layout,
+``{pos<i>: {k, v} | {ssm, conv_x, conv_B, conv_C}}`` with a leading
+``n_super`` axis.  ``decode_step`` writes it in place (the reference's
+``donate_argnums``) and returns it.  There is no sharding context yet
+(one card), and no remat policy (serving runs under
+``torch.inference_mode``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import compat
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+
+Pytree = Any
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU.  Without a card, a CUDA device raises; nothing falls back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} asked for, but no CUDA device is "
+                           f"available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class Params(nn.Module):
+    """A group of parameters named as in the reference's tree; indexable
+    by name (``p["wq"]``) like the reference's dicts."""
+
+    def __init__(self, shapes: dict, dtype, device):
+        super().__init__()
+        for name, shape in shapes.items():
+            if isinstance(shape, dict):
+                self.add_module(name, Params(shape, dtype, device))
+            else:
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(shape, dtype=dtype, device=device)))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+class LMModel(nn.Module):
+    def __init__(self, cfg: ArchConfig, attn_score_dtype: str = "float32",
+                 device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.score_dtype = _DTYPES[attn_score_dtype]
+        self.n_heads = cfg.num_heads
+        self.n_kv = cfg.kv_heads
+        period = cfg.hybrid_period
+        if not period:
+            period = 2 if (cfg.moe and cfg.moe.layer_pattern == "every_2") \
+                else 1
+        assert cfg.num_layers % period == 0, (cfg.num_layers, period)
+        self.period = period
+        self.n_super = cfg.num_layers // period
+        self.kinds = []
+        for i in range(period):
+            mixer = "attn" if cfg._layer_is_attn(i) else "ssm"
+            if cfg.moe is not None and cfg._layer_is_moe(i):
+                ffn = "moe"
+            elif cfg.d_ff > 0:
+                ffn = "dense"
+            else:
+                ffn = None
+            self.kinds.append((mixer, ffn))
+        self.pdt = _DTYPES[cfg.param_dtype]
+        self.cdt = _DTYPES[cfg.compute_dtype]
+
+        def param(shape):
+            return nn.Parameter(torch.empty(shape, dtype=self.pdt,
+                                            device=dev))
+        self.embed = param((cfg.vocab_size, cfg.d_model))
+        self.final_norm = param((cfg.d_model,))
+        if not cfg.tie_embeddings:
+            self.head = param((cfg.d_model, cfg.vocab_size))
+        block = {f"pos{i}": self._sublayer_shapes(*kind)
+                 for i, kind in enumerate(self.kinds)}
+        self.blocks = nn.ModuleList(
+            [Params(block, self.pdt, dev) for _ in range(self.n_super)])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ------------------------------------------------------------------
+    # parameter shapes / init
+    # ------------------------------------------------------------------
+    def _sublayer_shapes(self, mixer: str, ffn: Optional[str]) -> dict:
+        cfg = self.cfg
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        out: Dict[str, Any] = {"norm1": (d,)}
+        if mixer == "attn":
+            out["attn"] = {
+                "wq": (d, self.n_heads, hd),
+                "wk": (d, self.n_kv, hd),
+                "wv": (d, self.n_kv, hd),
+                "wo": (self.n_heads, hd, d),
+            }
+        else:
+            out["ssm"] = ssm_lib.ssm_param_shapes(d, cfg.ssm)
+        if ffn == "dense":
+            out["norm2"] = (d,)
+            out["mlp"] = L.mlp_param_shapes(d, cfg.d_ff, cfg.mlp_type)
+        elif ffn == "moe":
+            out["norm2"] = (d,)
+            out["moe"] = moe_lib.moe_param_shapes(d, cfg.moe, cfg.mlp_type)
+        return out
+
+    def param_shapes(self) -> Pytree:
+        """The reference's parameter tree of shapes: block leaves stacked
+        over the ``n_super`` superblocks.  Every leaf has dtype ``pdt``."""
+        cfg = self.cfg
+        shapes: Dict[str, Any] = {
+            "embed": (cfg.vocab_size, cfg.d_model),
+            "final_norm": (cfg.d_model,),
+            "blocks": {},
+        }
+        if not cfg.tie_embeddings:
+            shapes["head"] = (cfg.d_model, cfg.vocab_size)
+        for i, (mixer, ffn) in enumerate(self.kinds):
+            sub = self._sublayer_shapes(mixer, ffn)
+            shapes["blocks"][f"pos{i}"] = compat.tree_map(
+                lambda s: (self.n_super, *s), sub,
+                is_leaf=lambda s: isinstance(s, tuple))
+        return shapes
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None):
+        """Random weights by the reference's per-leaf rules (ones for the
+        norms and D, zeros for the conv biases, Mamba-2's A_log and dt_bias
+        draws, normal with std 0.02 for embed/head and 1/sqrt(d)
+        elsewhere), drawn
+        from ``generator`` (on the parameters' device; seed 0 if None).
+        The values differ from ``jax.random``'s: carry the reference's
+        own weights with ``params_from_reference``."""
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        d = self.cfg.d_model
+        for path, prm in self.named_parameters():
+            name = path.rsplit(".", 1)[-1]
+            shape, dev = prm.shape, prm.device
+
+            def draw(fn):
+                return fn(shape, generator=generator, device=dev,
+                          dtype=torch.float32)
+            if name in ("norm1", "norm2", "final_norm", "gate_norm", "D"):
+                prm.fill_(1.0)
+            elif name in ("conv_x_b", "conv_B_b", "conv_C_b"):
+                prm.zero_()
+            elif name == "A_log":
+                u = draw(torch.rand) * 15.0 + 1.0              # U(1, 16)
+                prm.copy_(torch.log(u))
+            elif name == "dt_bias":
+                lo, hi = math.log(1e-3), math.log(1e-1)
+                dt = torch.exp(draw(torch.rand) * (hi - lo) + lo)
+                prm.copy_(dt + torch.log(-torch.expm1(-dt)))
+            else:
+                scale = 0.02 if name in ("embed", "head") \
+                    else 1.0 / math.sqrt(d)
+                prm.copy_(draw(torch.randn) * scale)
+        return self
+
+    # ------------------------------------------------------------------
+    # forward components
+    # ------------------------------------------------------------------
+    def _qkv(self, p, x, positions):
+        cfg = self.cfg
+        q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
+        k = torch.einsum("bsd,dke->bske", x, p["wk"].to(x.dtype))
+        v = torch.einsum("bsd,dke->bske", x, p["wv"].to(x.dtype))
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
+
+    def _attention_full(self, p, x, positions, want_cache: bool,
+                        capacity: int = 0):
+        cfg = self.cfg
+        q, k, v = self._qkv(p, x, positions)
+        o = L.gqa_attention(q, k, v, positions, positions,
+                            swa_window=cfg.swa_window,
+                            softcap=cfg.attn_logit_softcap,
+                            score_dtype=self.score_dtype)
+        out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
+        if not want_cache:
+            return out, None
+        S = x.shape[1]
+        C = capacity
+        if C <= S:                       # ring (SWA) or exact-fit cache
+            k_c = torch.roll(k[:, S - C:], S % C, dims=1)
+            v_c = torch.roll(v[:, S - C:], S % C, dims=1)
+        else:
+            pad = torch.zeros((k.shape[0], C - S, *k.shape[2:]),
+                              dtype=k.dtype, device=k.device)
+            k_c, v_c = torch.cat([k, pad], 1), torch.cat([v, pad], 1)
+        return out, {"k": k_c, "v": v_c}
+
+    def _attention_decode(self, p, x, cache: dict, pos: torch.Tensor):
+        """pos: 0-d, or [B] for ragged continuous batching (per-slot
+        positions).  Writes the new k, v into ``cache`` in place."""
+        cfg = self.cfg
+        ragged = pos.ndim == 1
+        k_c, v_c = cache["k"], cache["v"]
+        C = k_c.shape[1]
+        posv = pos[:, None] if ragged else pos.reshape(1)
+        q, k, v = self._qkv(p, x, posv)
+        slots = torch.arange(C, dtype=torch.int64, device=x.device)
+        slot = pos % C
+        if ragged:
+            rows = torch.arange(x.shape[0], device=x.device)
+            k_c[rows, slot] = k[:, 0].to(k_c.dtype)
+            v_c[rows, slot] = v[:, 0].to(v_c.dtype)
+        else:
+            k_c.index_copy_(1, slot.reshape(1), k.to(k_c.dtype))
+            v_c.index_copy_(1, slot.reshape(1), v.to(v_c.dtype))
+        if cfg.swa_window and cfg.swa_window == C:
+            p_ = pos[:, None] if ragged else pos
+            slot_pos = p_ - ((p_ - slots) % C)
+        else:
+            slot_pos = slots
+        o = L.decode_attention(q, k_c, v_c, slot_pos, pos,
+                               softcap=cfg.attn_logit_softcap)
+        return torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
+
+    def _sublayer(self, p, x, kind, positions, mode: str, cache=None,
+                  pos=None, capacity: int = 0):
+        cfg = self.cfg
+        mixer, ffn = kind
+        h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        new_cache = None
+        if mixer == "attn":
+            if mode == "decode":
+                a = self._attention_decode(p["attn"], h, cache, pos)
+            else:
+                a, new_cache = self._attention_full(
+                    p["attn"], h, positions, want_cache=(mode == "prefill"),
+                    capacity=capacity)
+        else:
+            if mode == "decode":
+                a, new_cache = ssm_lib.ssm_decode_step(h, cache, p["ssm"],
+                                                       cfg.d_model, cfg.ssm)
+            elif mode == "prefill":
+                a, new_cache = ssm_lib.ssm_forward(h, p["ssm"], cfg.d_model,
+                                                   cfg.ssm,
+                                                   return_state=True)
+            else:
+                a = ssm_lib.ssm_forward(h, p["ssm"], cfg.d_model, cfg.ssm)
+        x = x + cfg.residual_scale * a
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if ffn is not None:
+            h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+            if ffn == "moe":
+                y, aux = moe_lib.moe_mlp(h, p["moe"], cfg.moe, cfg.mlp_type)
+            else:
+                y = L.mlp(h, p["mlp"], cfg.mlp_type)
+            x = x + cfg.residual_scale * y
+        return x, aux, new_cache
+
+    def _embed(self, tokens, embeds):
+        cfg = self.cfg
+        x = torch.nn.functional.embedding(tokens, self.embed).to(self.cdt)
+        x = x * cfg.embed_scale
+        if embeds is not None:
+            x = torch.cat([embeds.to(self.cdt), x], dim=1)
+        return x
+
+    def unembed_matrix(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.head
+
+    def _unembed(self, x):
+        head = self.unembed_matrix()
+        logits = (x @ head.to(x.dtype)).float()
+        return logits * self.cfg.logit_scale
+
+    # ------------------------------------------------------------------
+    # full-sequence forward
+    # ------------------------------------------------------------------
+    def forward(self, tokens: torch.Tensor,
+                embeds: Optional[torch.Tensor] = None,
+                return_hidden: bool = False):
+        """tokens: [B, S_text]; embeds: [B, F, d] (VLM stub) or None.
+        Returns (logits [B, S, V] fp32, aux_loss scalar); with
+        ``return_hidden`` the final-normed hidden states instead of
+        logits."""
+        x = self._embed(tokens, embeds)
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in self.blocks:
+            for i, kind in enumerate(self.kinds):
+                x, a, _ = self._sublayer(blk[f"pos{i}"], x, kind, positions,
+                                         mode="train")
+                aux = aux + a
+        x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        if return_hidden:
+            return x, aux
+        return self._unembed(x), aux
+
+    # ------------------------------------------------------------------
+    # prefill / decode (serving)
+    # ------------------------------------------------------------------
+    def capacity_for(self, seq_len: int) -> int:
+        cfg = self.cfg
+        if cfg.swa_window:
+            return min(cfg.swa_window, seq_len)
+        return seq_len
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor,
+                embeds: Optional[torch.Tensor] = None,
+                capacity: Optional[int] = None):
+        """Returns (cache, last-position logits [B, V])."""
+        x = self._embed(tokens, embeds)
+        S = x.shape[1]
+        capacity = capacity or self.capacity_for(S)
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        per_block = []
+        for blk in self.blocks:
+            caches = {}
+            for i, kind in enumerate(self.kinds):
+                x, _, c = self._sublayer(blk[f"pos{i}"], x, kind, positions,
+                                         mode="prefill", capacity=capacity)
+                caches[f"pos{i}"] = c
+            per_block.append(caches)
+        cache = {key: {name: torch.stack([c[key][name] for c in per_block])
+                       for name in per_block[0][key]}
+                 for key in per_block[0]}
+        x = L.rms_norm(x[:, -1:], self.final_norm, self.cfg.norm_eps)
+        logits = self._unembed(x)[:, 0]
+        return cache, logits
+
+    @torch.inference_mode()
+    def decode_step(self, cache: Pytree, tokens: torch.Tensor, pos):
+        """tokens: [B, 1]; pos: the absolute position of the new token, a
+        scalar or a [B] vector (ragged).  Writes ``cache`` in place and
+        returns (cache, logits [B, V]).  An SSM conv tail whose new value
+        has a wider dtype than the cache (f32 compute on a bf16 cache)
+        replaces its stacked tensor with the wider one, as the reference's
+        scan output does."""
+        x = self._embed(tokens, None)
+        pos = pos.to(x.device).long() if isinstance(pos, torch.Tensor) \
+            else torch.full((), pos, dtype=torch.long, device=x.device)
+        for j, blk in enumerate(self.blocks):
+            for i, kind in enumerate(self.kinds):
+                stack = cache[f"pos{i}"]
+                layer = {name: t[j] for name, t in stack.items()}
+                x, _, new = self._sublayer(blk[f"pos{i}"], x, kind, None,
+                                           mode="decode", cache=layer,
+                                           pos=pos)
+                for name, t in (new or {}).items():
+                    if stack[name].dtype != t.dtype:
+                        stack[name] = stack[name].to(t.dtype)
+                    stack[name][j].copy_(t)
+        x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        logits = self._unembed(x)[:, 0]
+        return cache, logits
+
+    # ------------------------------------------------------------------
+    # cache shapes
+    # ------------------------------------------------------------------
+    def cache_shapes(self, batch: int, seq_len: int) -> Pytree:
+        """{pos<i>: {name: (shape, dtype)}}, stacked over superblocks; the
+        KV cache is bf16, as in the reference."""
+        cfg = self.cfg
+        capacity = self.capacity_for(seq_len)
+        hd = cfg.resolved_head_dim
+        out = {}
+        for i, (mixer, _) in enumerate(self.kinds):
+            if mixer == "attn":
+                kv = ((self.n_super, batch, capacity, self.n_kv, hd),
+                      torch.bfloat16)
+                out[f"pos{i}"] = {"k": kv, "v": kv}
+            else:
+                st = ssm_lib.ssm_state_shapes(batch, cfg.d_model, cfg.ssm)
+                out[f"pos{i}"] = {k: ((self.n_super, *shape), dt)
+                                  for k, (shape, dt) in st.items()}
+        return out
+
+
+def build_model(cfg: ArchConfig, attn_score_dtype: str = "float32",
+                device="cuda") -> LMModel:
+    """The model with its parameters allocated on ``device`` (CUDA unless
+    the caller asks for the CPU) and not yet set: call ``init`` or
+    ``params_from_reference``."""
+    return LMModel(cfg, attn_score_dtype, device)
+
+
+# --------------------------------------------------------------------------
+# weights carried across from / to the JAX package's parameter tree
+# --------------------------------------------------------------------------
+def _ref_leaves(model: LMModel):
+    """(reference path, [parameters]) for every leaf of the reference's
+    tree: one parameter for a top-level leaf, one per superblock for a
+    stacked block leaf."""
+    out = []
+    for path, _ in compat.tree_flatten_with_path(
+            model.param_shapes(),
+            is_leaf=lambda s: isinstance(s, tuple))[0]:
+        keys = tuple(k.key for k in path)
+        if keys[0] == "blocks":
+            prms = []
+            for blk in model.blocks:
+                node = blk
+                for k in keys[1:]:
+                    node = node[k]
+                prms.append(node)
+            out.append((keys, prms))
+        else:
+            out.append((keys, [getattr(model, keys[0])]))
+    return out
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor, ``ml_dtypes.bfloat16`` included (which
+    ``torch.from_numpy`` refuses): its bits go across as int16."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        try:
+            bf16 = np.dtype("bfloat16")     # registered by ml_dtypes
+        except TypeError as e:
+            raise TypeError("a bf16 parameter needs numpy's bfloat16 dtype, "
+                            "which ml_dtypes registers") from e
+        return t.view(torch.int16).numpy().view(bf16)
+    return t.numpy()
+
+
+@torch.no_grad()
+def params_from_reference(model: LMModel, tree: Pytree) -> LMModel:
+    """Load the reference's ``model.init`` tree (nested dicts of numpy
+    arrays, block leaves stacked over superblocks) into ``model``, cast to
+    its parameter dtype.  Every leaf must be present with its shape."""
+    for keys, prms in _ref_leaves(model):
+        node = tree
+        for k in keys:
+            node = node[k]
+        arr = _from_numpy(np.asarray(node))
+        want = (len(prms), *prms[0].shape) if keys[0] == "blocks" \
+            else tuple(prms[0].shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{'/'.join(keys)}: shape {tuple(arr.shape)}, "
+                             f"model wants {want}")
+        if keys[0] != "blocks":
+            arr = arr[None]
+        for j, prm in enumerate(prms):
+            prm.copy_(arr[j])
+    return model
+
+
+def params_to_reference(model: LMModel) -> Pytree:
+    """The reference's parameter tree (nested dicts of numpy arrays in the
+    parameter dtype, block leaves stacked over superblocks)."""
+    tree: Dict[str, Any] = {}
+    for keys, prms in _ref_leaves(model):
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        if keys[0] == "blocks":
+            node[keys[-1]] = _to_numpy(torch.stack([p.detach()
+                                                    for p in prms]))
+        else:
+            node[keys[-1]] = _to_numpy(prms[0])
+    return tree

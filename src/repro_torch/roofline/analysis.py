@@ -93,6 +93,56 @@ def model_flops(arch: str, shape_name: str) -> float:
     return 2.0 * n_active * shape.global_batch
 
 
+def prefill_flops(cfg, batch: int, seq_len: int) -> float:
+    """FLOPs a prefill of ``batch`` prompts of ``seq_len`` tokens needs at
+    the least, 2 per multiply-add: every layer's projections and FFN for
+    every token (MoE: the router, ``top_k`` experts and the shared ones),
+    causal attention scores and P.V over the (query, key) pairs a query
+    may see (key <= query, within the sliding window), and the head on the
+    last position only (prefill returns last-position logits).  Mamba-2's
+    SSD scan is not counted, so for SSM layers the count falls short of
+    the work, and its time of the least time."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    n_mats = 3 if cfg.mlp_type == "swiglu" else 2
+    w = cfg.swa_window or seq_len
+    pairs = batch * sum(min(q + 1, w) for q in range(seq_len))
+    per_token = 0
+    attn = 0
+    for i in range(cfg.num_layers):
+        if cfg._layer_is_attn(i):
+            per_token += 2 * d * hd * (2 * cfg.num_heads + 2 * cfg.kv_heads)
+            attn += 4 * cfg.num_heads * hd * pairs
+        else:
+            s = cfg.ssm
+            d_in = s.expand * d
+            gn = s.ngroups * s.state_dim
+            per_token += 2 * d * (2 * d_in + 2 * gn + d_in // s.head_dim) \
+                + 2 * d_in * d
+        if cfg._layer_is_moe(i):
+            m = cfg.moe
+            per_token += 2 * d * m.num_experts + 2 * n_mats * d \
+                * m.d_ff_expert * (m.top_k + m.num_shared_experts)
+        elif cfg.d_ff:
+            per_token += 2 * n_mats * d * cfg.d_ff
+    head = 2 * d * cfg.vocab_size * batch
+    return float(per_token * batch * seq_len + attn + head)
+
+
+def decode_weight_bytes(cfg, bytes_per_param: int) -> float:
+    """Bytes of the weights one decode step of a dense or SSM model must
+    read: every weight but the embedding table, of which a step reads only
+    its tokens' rows (a tied table is read whole, as the head).  A MoE
+    step reads only the experts its tokens chose, which this count cannot
+    know, so it raises."""
+    if cfg.moe is not None:
+        raise ValueError(f"{cfg.name}: a MoE step's expert reads depend on "
+                         f"its tokens")
+    n = cfg.param_count()
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab_size * cfg.d_model
+    return float(n * bytes_per_param)
+
+
 def roofline_terms(rec: dict, hw: HW = HW()) -> dict:
     """rec: one dry-run JSON record -> roofline terms in seconds.
 

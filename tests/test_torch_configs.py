@@ -118,3 +118,25 @@ def test_load_records_filters_tags(tmp_path):
     assert list(analysis.load_records(str(tmp_path))) == \
         ["a__train_4k__single"]
     assert analysis.load_records(str(tmp_path / "missing")) == {}
+
+
+def test_prefill_flops_and_decode_bytes_count_by_hand():
+    cfg = configs.get_config("llama3-8b")
+    d, H, K, hd, f, V, L = 4096, 32, 8, 128, 14336, 128256, 32
+    B, S = 4, 4096
+    per_token = 2 * d * hd * (2 * H + 2 * K) + 2 * 3 * d * f
+    pairs = B * S * (S + 1) // 2
+    want = L * (per_token * B * S + 4 * H * hd * pairs) + 2 * d * V * B
+    assert analysis.prefill_flops(cfg, B, S) == want
+    # a sliding window caps the pairs: mixtral's 4096 at S 4097
+    mix = configs.get_config("mixtral-8x7b")
+    full = analysis.prefill_flops(dataclasses.replace(mix, swa_window=0),
+                                  1, 4097)
+    assert full - analysis.prefill_flops(mix, 1, 4097) == \
+        mix.num_layers * 4 * 32 * 128 * 1
+    assert analysis.decode_weight_bytes(cfg, 2) == \
+        2 * (cfg.param_count() - V * d)
+    tied = configs.get_config("mamba2-1.3b")
+    assert analysis.decode_weight_bytes(tied, 4) == 4 * tied.param_count()
+    with pytest.raises(ValueError):
+        analysis.decode_weight_bytes(mix, 2)
