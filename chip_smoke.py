@@ -3,7 +3,7 @@
 GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
-CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs nine phases,
+CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs ten phases,
 each printing its results:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
@@ -97,7 +97,25 @@ each printing its results:
    widths in 2 layers, f32), mamba2-1.3b at full width and mixtral-8x7b's
    widths in 2 layers (prefill, 8 decode steps, decode against forward),
    and every architecture's smoke config on the card against the CPU.
-   It fails if it launched any of the ported kernels.
+   It fails if it launched any of the ported kernels;
+10. the training path (``repro_torch.optim``, ``repro_torch.train``,
+   ``repro_torch.data``): the training CLI ``repro_torch.launch.train`` on
+   minicpm-2b at its published widths and depth (f32 master weights, bf16
+   compute, AdamW, the WSD schedule, remat), batch 4 x 2048 for 2 warm-up
+   and 8 timed steps, the median step beside its FLOP bound, tokens/s, the
+   peak memory and the issuing thread's CPU share, loss and grad norm per
+   step (finite, falling; launches none of the ported kernels); one train
+   step on the card against the CPU (minicpm-2b's widths in 2 layers, f32,
+   and every architecture's smoke config): loss, grad norm and grads
+   within 1e-4, and the card's optimiser fed the CPU's grads, its updated
+   parameters within one ulp plus 1e-4 of the largest update; attention
+   across query blocks and blocked cross-entropy across chunks under grad
+   (each block and chunk checkpointed), card against CPU within 1e-4;
+   then the CLI with the example's checkpoint run (llama3-8b ``100m``, 200 steps, a checkpoint every 50
+   through ``ca='cdc-gear'`` on the card, a failure at step 120): one
+   restart from the last checkpoint, every checkpoint restored tensor for
+   tensor through a new engine, save and restore MB/s and dedup per
+   checkpoint, with ``gear`` and ``md5_direct`` launched.
 
 Any failed check raises, so the script exits non-zero.  The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -2238,6 +2256,347 @@ def phase_lm(torch, np, smi: str):
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 10: training.  (a) the training CLI, python -m
+# repro_torch.launch.train with TRAIN_ARGV: minicpm-2b at its published
+# widths and depth, f32 master weights and bf16 compute from seed
+# TRAIN_SEED, batch 4 x 2048, 10 steps of which the CLI's WARMUP_STEPS (2)
+# are left out of the timing, no checkpoint; (b) one train step on the
+# card against the CPU; (c) the CLI with examples/train_lm.py's arguments
+# (CKPT_ARGV) and checkpoints on the card
+TRAIN_SEED = 0
+TRAIN_ARGV = ["--arch", "minicpm-2b", "--preset", "full", "--batch", "4",
+              "--seq", "2048", "--steps", "10", "--ckpt-every", "0",
+              "--seed", str(TRAIN_SEED)]
+# peak device memory allowed in (a); past it the batch would have to halve
+TRAIN_PEAK_BYTES = 72e9
+# (b) minicpm-2b's widths cut to TRAIN_CPU_LAYERS layers, f32 compute on
+# both, one step (step 1, past the schedule's warm-up) on a batch of
+# TRAIN_CPU_B x TRAIN_CPU_S: loss and grad norm within TRAIN_TOL
+# relative, every grad within TRAIN_TOL of its leaf's largest; then the
+# optimiser on the card fed the CPU's grads, its updated parameters within
+# TRAIN_TOL of the largest update beyond one ulp of the parameter (held
+# on shared grads: AdamW's first update is about lr * g / (|g| + eps),
+# which flips or swings where g is near 0, so grads that differ in their
+# last bits move it far; and each f32 parameter rounds p - lr u to within
+# half an ulp of p, so two equal updates may leave parameters one ulp
+# apart)
+TRAIN_CPU_LAYERS, TRAIN_CPU_B, TRAIN_CPU_S, TRAIN_TOL = 2, 1, 64, 1e-4
+TRAIN_LR = 1e-3
+# (b) the long-row paths at minicpm-2b's widths, f32, card against CPU
+# within TRAIN_TOL of each output's largest: gqa_attention under grad over
+# REMAT_Q_BLOCKS query blocks of REMAT_Q_BLOCK rows (each block
+# checkpointed), and blocked_cross_entropy over REMAT_CE_CHUNKS chunks of
+# trainstep.CE_CHUNK positions (each chunk checkpointed) against a head of
+# REMAT_VOCAB columns
+REMAT_Q_BLOCK, REMAT_Q_BLOCKS, REMAT_CE_CHUNKS, REMAT_VOCAB = 128, 4, 3, 8192
+# (c) examples/train_lm.py: a checkpoint every 50 steps, a failure at 120
+CKPT_ARGV = ["--arch", "llama3-8b", "--preset", "100m", "--steps", "200",
+             "--batch", "2", "--seq", "128", "--ckpt-every", "50",
+             "--fail-at", "120", "--ckpt-chunking", "cdc-gear", "--seed",
+             str(TRAIN_SEED)]
+
+
+def _argv_int(argv, flag: str) -> int:
+    return int(argv[argv.index(flag) + 1])
+
+
+class _GradRecorder:
+    """An optimiser that keeps a stacked copy of the grads it is given."""
+
+    def __init__(self, opt):
+        self.opt, self.lr_fn = opt, opt.lr_fn
+
+    def update(self, grads, state, params, step):
+        from repro_torch.models import stacked
+        self.grads = stacked.stack(grads)
+        return self.opt.update(grads, state, params, step)
+
+
+def train_card_vs_cpu(torch, np, cfg, dev, B: int, S: int, what: str):
+    """One train step (step 1) from the same weights and batch on the card
+    and on the CPU: loss and grad norm within TRAIN_TOL relative, every
+    grad within TRAIN_TOL of its leaf's largest.  Then, from the same
+    weights, the card's optimiser fed the CPU's grads: its updated
+    parameters within one ulp plus TRAIN_TOL of the CPU step's largest
+    update of the CPU step's.
+    Returns the worst ratios."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models.model import build_model, param_tree
+    from repro_torch.models import stacked
+    from repro_torch.optim import make_optimizer, make_schedule
+    from repro_torch.train.trainstep import grad_tree, make_train_step
+
+    def optimizer():
+        return _GradRecorder(make_optimizer(
+            cfg.optimizer, make_schedule(cfg.lr_schedule, TRAIN_LR, 100)))
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(TRAIN_SEED))
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    start = stacked.map_leaves(lambda t: t.clone(),
+                               stacked.stack(param_tree(cpu)))
+    batch = make_pipeline(cfg, S, B, seed=TRAIN_SEED).batch(0)
+    res = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        rec = optimizer()
+        params = param_tree(m)
+        _, _, met = make_train_step(m, rec)(params, rec.opt.init(params),
+                                            batch, 1)
+        res[name] = ({k: float(v) for k, v in met.items()},
+                     stacked.map_leaves(lambda t: t.cpu(), rec.grads))
+    (m_card, g_card), (m_cpu, g_cpu) = res["card"], res["cpu"]
+    rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+           for k in ("loss", "grad_norm")}
+    g_worst = 0.0
+    for path, gc in stacked.leaves(g_cpu):
+        g_scale = float(gc.abs().max())
+        if g_scale > 0:
+            g_worst = max(g_worst, float(
+                (stacked.get(g_card, path) - gc).abs().max()) / g_scale)
+    # the card's optimiser on the CPU's grads, from the starting weights
+    p_cpu = dict(stacked.leaves(stacked.stack(param_tree(cpu))))
+    u_cpu = {p: a - stacked.get(start, p) for p, a in p_cpu.items()}
+    params = param_tree(card)
+    stacked.copy_into(params, start)
+    flat = []
+    for path, leaf in stacked.leaves(params):
+        g = stacked.get(g_cpu, path).to(dev)
+        flat += list(g) if isinstance(leaf, list) else [g]
+    rec = optimizer()
+    rec.update(grad_tree(params, flat), rec.opt.init(params), params, 1)
+    u_scale = max(float(u.abs().max()) for u in u_cpu.values())
+    u_worst = 0.0
+    for path, a in stacked.leaves(stacked.stack(params)):
+        got, want = a.cpu(), p_cpu[path]
+        top = torch.maximum(got.abs(), want.abs())
+        ulp = torch.nextafter(top, torch.full_like(top, math.inf)) - top
+        excess = ((got - want).abs() - ulp).clamp(min=0)
+        u_worst = max(u_worst, float(excess.max()) / u_scale)
+    print(f"{what}: card against CPU, one train step (B {B}, S {S}): loss "
+          f"{m_card['loss']:.6f} / {m_cpu['loss']:.6f} (rel {rel['loss']:.2e}),"
+          f" grad_norm rel {rel['grad_norm']:.2e}, grads {g_worst:.2e} of "
+          f"each leaf's largest; the card's {cfg.optimizer} on the CPU's "
+          f"grads: parameters apart by {u_worst:.2e} of the largest update "
+          f"{u_scale:.3e} beyond one ulp (limit {TRAIN_TOL})")
+    check(rel["loss"] <= TRAIN_TOL and rel["grad_norm"] <= TRAIN_TOL,
+          f"{what}: loss and grad norm on the card == CPU")
+    check(g_worst <= TRAIN_TOL, f"{what}: grads on the card == CPU")
+    check(u_worst <= TRAIN_TOL, f"{what}: updates on the card == CPU")
+    check(all(math.isfinite(v) for v in m_card.values()),
+          f"{what}: finite metrics on the card")
+    return max(rel.values()), g_worst, u_worst
+
+
+def remat_card_vs_cpu(torch, cfg, dev, what: str):
+    """gqa_attention across query blocks and blocked_cross_entropy
+    across chunks, under grad, on the card and on the CPU from the same
+    inputs: every output and grad within TRAIN_TOL of its largest."""
+    from repro_torch.models.layers import gqa_attention
+    from repro_torch.train.trainstep import CE_CHUNK, blocked_cross_entropy
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    S, Sc = REMAT_Q_BLOCK * REMAT_Q_BLOCKS, CE_CHUNK * REMAT_CE_CHUNKS
+    H, K, hd, d = (cfg.num_heads, cfg.kv_heads, cfg.resolved_head_dim,
+                   cfg.d_model)
+    q, w = (torch.randn(1, S, H, hd, generator=gen) for _ in range(2))
+    k, v = (torch.randn(1, S, K, hd, generator=gen) for _ in range(2))
+    x = torch.randn(1, Sc, d, generator=gen)
+    head = torch.randn(d, REMAT_VOCAB, generator=gen) * d ** -0.5
+    labels = torch.randint(0, REMAT_VOCAB, (1, Sc), generator=gen)
+    names = ("attention", "CE sum", "dq", "dk", "dv", "dx", "dhead")
+
+    def run(device):
+        ins = [t.to(device).requires_grad_() for t in (q, k, v, x, head)]
+        pos = torch.arange(S, device=device)
+        att = gqa_attention(*ins[:3], pos, pos, q_block=REMAT_Q_BLOCK)
+        tot, cnt = blocked_cross_entropy(
+            ins[3], ins[4], labels.to(device),
+            torch.ones(1, Sc, device=device), cfg.logit_scale)
+        grads = torch.autograd.grad((att * w.to(device)).sum() + tot / cnt,
+                                    ins)
+        return [t.detach().cpu() for t in (att, tot, *grads)]
+    errs = {n: float((a - b).abs().max()) / float(b.abs().max())
+            for n, a, b in zip(names, run(dev), run(torch.device("cpu")))}
+    print(f"{what}: gqa_attention over {REMAT_Q_BLOCKS} query blocks of "
+          f"{REMAT_Q_BLOCK} ({H}/{K} heads of {hd}) and blocked CE over "
+          f"{REMAT_CE_CHUNKS} chunks of {CE_CHUNK} (d {d}, vocab "
+          f"{REMAT_VOCAB}), each checkpointed, card against CPU: "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + f" of each one's largest (limit {TRAIN_TOL})")
+    check(max(errs.values()) <= TRAIN_TOL,
+          f"{what}: checkpointed query blocks and CE chunks on the card "
+          f"== CPU")
+
+
+def phase_train(torch, np, smi: str):
+    """Phase 10: the training path on the card."""
+    from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
+    from repro_torch.core import CrystalGPU, SAI, SAIConfig
+    from repro_torch.kernels import flash_attn, gear, md5, sliding_md5
+    from repro_torch.launch import train as train_cli
+    from repro_torch.roofline.analysis import HW, train_step_flops
+    from repro_torch.train import checkpoint as ckpt_lib
+    print("== phase 10: training (minicpm-2b at full width and depth, "
+          "card against CPU, checkpoints and a restart on the card)")
+    t_phase = time.perf_counter()
+    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+                "gear": gear.LAUNCHES, "flash_attn": flash_attn.LAUNCHES,
+                "flash_tf32_split": flash_attn.SPLIT_LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    hw = HW()
+
+    # (a) the training CLI: minicpm-2b at full width and depth
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    print(f"(a) python -m repro_torch.launch.train {' '.join(TRAIN_ARGV)}")
+    out = train_cli.main(TRAIN_ARGV)
+    model, cfg = out["model"], out["cfg"]
+    dev = model.device
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"(a) {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, tied {cfg.tie_embeddings}: {n_params} "
+          f"parameters ({cfg.param_dtype} master, {cfg.compute_dtype} "
+          f"compute, {cfg.optimizer}, {cfg.lr_schedule}, remat "
+          f"{model.remat_policy}) on {model.device}; built, initialised "
+          f"and trained in {time.perf_counter() - t0:.1f} s")
+    B, S = _argv_int(TRAIN_ARGV, "--batch"), _argv_int(TRAIN_ARGV, "--seq")
+    warmup = train_cli.WARMUP_STEPS
+    steps = out["step_s"][warmup:]
+    cpu_s = out["host_cpu_s"][warmup:]
+    t_step = statistics.median(steps)
+    flops = train_step_flops(cfg, B, S,
+                             remat=model.remat_policy == "nothing_saveable")
+    bound = flops / hw.peak_flops
+    print(f"(a) train step [{smi}]: median {t_step * 1e3:.3f} ms (min "
+          f"{min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f}, {len(steps)} "
+          f"steps after {warmup} warm-up, "
+          f"{'CUDA events' if dev.type == 'cuda' else 'host clock'}), bound "
+          f"{bound * 1e3:.1f} ms ({flops:.4e} FLOP at "
+          f"{hw.peak_flops / 1e12:.0f} TFLOP/s, "
+          f"repro_torch.roofline.analysis.train_step_flops), so "
+          f"{bound / t_step:.1%} of it; {B * S / t_step:.1f} tok/s; this "
+          f"thread on the CPU {statistics.median(cpu_s) * 1e3:.3f} ms a step "
+          f"(median), {sum(cpu_s) / sum(steps):.1%} of the steps' time")
+    print(f"(a) peak memory [{smi}]: {peak / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated; limit "
+          f"{TRAIN_PEAK_BYTES / 1e9:.0f} GB)")
+    for i, (loss, gn) in enumerate(zip(out["losses"], out["grad_norms"])):
+        print(f"(a) step {i}: loss {loss:.5f}, grad_norm {gn:.5f}, "
+              f"{out['step_s'][i] * 1e3:.3f} ms")
+    check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
+          "(a) finite loss and grad norm at every step")
+    check(out["losses"][-1] < out["losses"][0], "(a) the loss fell")
+    moved = [float((p.detach() - 1.0).abs().max())
+             for p in [model.final_norm] + [b["pos0"]["norm1"]
+                                            for b in model.blocks]]
+    check(min(moved) > 0.0, "(a) every norm scale moved from its init")
+    check(peak <= TRAIN_PEAK_BYTES, "(a) peak memory within the limit")
+    launches = {k: c.value for k, c in counters.items()}
+    check(not any(launches.values()),
+          "(a) training launches none of the ported kernels")
+    del out, model
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU: minicpm-2b's widths in 2 layers, f32;
+    # then every smoke config
+    c2 = dataclasses.replace(get_config("minicpm-2b"),
+                             num_layers=TRAIN_CPU_LAYERS,
+                             param_dtype="float32", compute_dtype="float32")
+    train_card_vs_cpu(torch, np, c2, dev, TRAIN_CPU_B, TRAIN_CPU_S,
+                      f"(b) {c2.name} widths, {c2.num_layers} layers, f32")
+    remat_card_vs_cpu(torch, c2, dev, f"(b) {c2.name} widths, f32")
+    worst = [0.0, 0.0, 0.0]
+    for arch in ARCH_NAMES:
+        r = train_card_vs_cpu(torch, np, get_smoke_config(arch), dev, 2, 64,
+                              f"(b) {arch} smoke")
+        worst = [max(a, b) for a, b in zip(worst, r)]
+    print(f"(b) every smoke config: loss/grad_norm {worst[0]:.2e}, grads "
+          f"{worst[1]:.2e}, updates {worst[2]:.2e} (limit {TRAIN_TOL})")
+    launches = {k: c.value for k, c in counters.items()}
+    check(not any(launches.values()),
+          "(b) training launches none of the ported kernels")
+    torch.cuda.empty_cache()
+
+    # (c) the example's checkpoint run through CrystalGPU on the card
+    saved = []
+
+    class Recording(ckpt_lib.CACheckpointer):
+        """Keeps a host copy of every state it saves."""
+
+        def save(self, step, params, opt_state=None, extra=None):
+            saved.append((step, ckpt_lib.host_copy(
+                {"params": params, "opt": opt_state})))
+            return super().save(step, params, opt_state, extra)
+
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    print(f"(c) python -m repro_torch.launch.train {' '.join(CKPT_ARGV)}")
+    real = train_cli.CACheckpointer
+    train_cli.CACheckpointer = Recording
+    try:
+        out = train_cli.main(CKPT_ARGV)
+    finally:
+        train_cli.CACheckpointer = real
+    sup, ckpt = out["supervisor"], out["checkpointer"]
+    total = _argv_int(CKPT_ARGV, "--steps")
+    every = _argv_int(CKPT_ARGV, "--ckpt-every")
+    fail = _argv_int(CKPT_ARGV, "--fail-at")
+    last = fail // every * every
+    steps = [r["step"] for r in sup.log]
+    losses = [r["loss"] for r in sup.log]
+    print(f"(c) {out['cfg'].name} {out['cfg'].param_count() / 1e6:.1f}M "
+          f"parameters: {len(steps)} steps in {out['wall_s']:.1f} s, "
+          f"restarts {sup.restarts}, first loss {losses[0]:.4f}, last "
+          f"{losses[-1]:.4f}")
+    check(sup.restarts == 1, "(c) exactly one restart")
+    check(all(steps.count(i) == 2 for i in range(last, fail))
+          and steps.count(fail) == 1 and steps[-1] == total - 1
+          and len(steps) == total + fail - last,
+          f"(c) steps {last}..{fail - 1} re-run from the checkpoint at "
+          f"{last}, then on to {total - 1}")
+    check(losses[-1] < losses[0], "(c) the loss fell")
+    check(len(ckpt.history) >= 3 and len(saved) == len(ckpt.history),
+          "(c) at least three checkpoints")
+    for r in ckpt.history:
+        print(f"(c) checkpoint step {r['step']} [{smi}]: "
+              f"{r['total_bytes'] / 1e6:.1f} MB, new "
+              f"{r['new_bytes'] / 1e6:.1f} MB, dedup {r['dedup_ratio']:.4f}, "
+              f"save {r['total_bytes'] / r['wall_s'] / 1e6:.1f} MB/s")
+    eng = CrystalGPU(devices=[dev])
+    try:
+        reader = ckpt_lib.CACheckpointer(SAI(out["store"], SAIConfig(
+            ca="cdc-gear", hasher="gpu"), crystal=eng))
+        for v, (want_step, want) in enumerate(saved):
+            t0 = time.perf_counter()
+            step, state, _ = reader.restore(version=v)
+            dt = time.perf_counter() - t0
+            got_l, want_l = [], []
+            ckpt_lib._walk(state, (), got_l)
+            ckpt_lib._walk(want, (), want_l)
+            nbytes = sum(t.numel() * t.element_size() for _, t in want_l)
+            check(step == want_step and [k for k, _ in got_l]
+                  == [k for k, _ in want_l] and all(
+                      torch.equal(a, b) for (_, a), (_, b)
+                      in zip(got_l, want_l)),
+                  f"(c) checkpoint {v} (step {want_step}) restores tensor "
+                  f"for tensor")
+            print(f"(c) restore of checkpoint {v} (step {step}) [{smi}]: "
+                  f"{len(got_l)} tensors, {nbytes / 1e6:.1f} MB, "
+                  f"{nbytes / dt / 1e6:.1f} MB/s verified, every tensor equal")
+    finally:
+        eng.shutdown()
+    launches = {k: c.value for k, c in counters.items()}
+    print(f"phase 10 (c) kernel launches: {launches}")
+    check(launches["gear"] > 0 and launches["md5"] > 0,
+          "(c) gear and md5_direct launched by the checkpoints")
+    del out, saved
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2268,6 +2627,7 @@ def main() -> int:
     del mesh_images, maps
     torch.cuda.empty_cache()
     phase_lm(torch, np, smi)
+    phase_train(torch, np, smi)
     kernels = []
     for name, counter, source, replaces in [
             ("md5_direct", "md5", "src/repro_torch/kernels/csrc/md5.cu",

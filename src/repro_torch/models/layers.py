@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # Query-block length for blocked attention.  4096-token training shapes use
 # a single block; 32k prefill loops over 8 blocks of 4k.
@@ -105,9 +106,9 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: [B, S, H, hd]; k, v: [B, Sk, K, hd] with H = K * G.
     Inputs go head-major once, then a loop over query blocks computes
-    softmax against the full (masked) KV.  (The JAX package rematerialises
-    each block for training; serving needs no gradient, so nothing is
-    saved here either way.)
+    softmax against the full (masked) KV.  With grad enabled each block
+    runs under ``torch.utils.checkpoint``, as the JAX package
+    rematerialises it, so backward holds one block's scores at a time.
     """
     B, S, H, hd = q.shape
     K = k.shape[2]
@@ -121,11 +122,14 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
 
     assert S % q_block == 0, (S, q_block)
+    remat = torch.is_grad_enabled()
     out = []
     for i in range(S // q_block):
         sl = slice(i * q_block, (i + 1) * q_block)
-        ob = _attend_block(qh[:, :, :, sl], kh, vh, q_positions[sl],
-                           k_positions, swa_window, softcap, score_dtype)
+        args = (qh[:, :, :, sl], kh, vh, q_positions[sl], k_positions,
+                swa_window, softcap, score_dtype)
+        ob = checkpoint(_attend_block, *args, use_reentrant=False) \
+            if remat else _attend_block(*args)
         out.append(ob.permute(0, 3, 1, 2, 4))              # [B,qb,K,G,hd]
     return torch.cat(out, dim=1).reshape(B, S, H, hd)
 

@@ -14,8 +14,14 @@ The serving cache keeps the reference's stacked layout,
 ``{pos<i>: {k, v} | {ssm, conv_x, conv_B, conv_C}}`` with a leading
 ``n_super`` axis.  ``decode_step`` writes it in place (the reference's
 ``donate_argnums``) and returns it.  There is no sharding context yet
-(one card), and no remat policy (serving runs under
-``torch.inference_mode``).
+(one card).
+
+Remat: under ``remat_policy="nothing_saveable"`` (the reference's
+baseline) each superblock of the training forward runs under
+``torch.utils.checkpoint``, so backward keeps only the superblocks'
+inputs and recomputes the rest; ``"everything_saveable"`` keeps every
+activation.  Serving (``prefill``, ``decode_step``) runs under
+``torch.inference_mode`` and saves nothing either way.
 """
 from __future__ import annotations
 
@@ -25,17 +31,24 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import stacked
 
 Pytree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+# remat policies of the training forward (``jax.checkpoint_policies``
+# names); the JAX package's dry run also sweeps others, which wait for the
+# port of ``launch/dryrun.py``
+REMAT_POLICIES = ("nothing_saveable", "everything_saveable")
 
 
 def resolve_device(device) -> torch.device:
@@ -67,10 +80,16 @@ class Params(nn.Module):
 
 class LMModel(nn.Module):
     def __init__(self, cfg: ArchConfig, attn_score_dtype: str = "float32",
-                 device="cuda"):
+                 device="cuda", remat_policy: str = "nothing_saveable"):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat policy {remat_policy!r}: the port has "
+                f"{REMAT_POLICIES}; the others belong to the dry-run slice "
+                f"(launch/dryrun.py), not yet ported")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.remat_policy = remat_policy
         self.score_dtype = _DTYPES[attn_score_dtype]
         self.n_heads = cfg.num_heads
         self.n_kv = cfg.kv_heads
@@ -302,6 +321,13 @@ class LMModel(nn.Module):
     # ------------------------------------------------------------------
     # full-sequence forward
     # ------------------------------------------------------------------
+    def _superblock(self, blk, x, aux, positions):
+        for i, kind in enumerate(self.kinds):
+            x, a, _ = self._sublayer(blk[f"pos{i}"], x, kind, positions,
+                                     mode="train")
+            aux = aux + a
+        return x, aux
+
     def forward(self, tokens: torch.Tensor,
                 embeds: Optional[torch.Tensor] = None,
                 return_hidden: bool = False):
@@ -313,11 +339,14 @@ class LMModel(nn.Module):
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.remat_policy == "nothing_saveable" \
+            and torch.is_grad_enabled()
         for blk in self.blocks:
-            for i, kind in enumerate(self.kinds):
-                x, a, _ = self._sublayer(blk[f"pos{i}"], x, kind, positions,
-                                         mode="train")
-                aux = aux + a
+            if remat:
+                x, aux = checkpoint(self._superblock, blk, x, aux, positions,
+                                    use_reentrant=False)
+            else:
+                x, aux = self._superblock(blk, x, aux, positions)
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         if return_hidden:
             return x, aux
@@ -405,11 +434,12 @@ class LMModel(nn.Module):
 
 
 def build_model(cfg: ArchConfig, attn_score_dtype: str = "float32",
-                device="cuda") -> LMModel:
+                device="cuda",
+                remat_policy: str = "nothing_saveable") -> LMModel:
     """The model with its parameters allocated on ``device`` (CUDA unless
     the caller asks for the CPU) and not yet set: call ``init`` or
     ``params_from_reference``."""
-    return LMModel(cfg, attn_score_dtype, device)
+    return LMModel(cfg, attn_score_dtype, device, remat_policy)
 
 
 # --------------------------------------------------------------------------
@@ -437,17 +467,24 @@ def _ref_leaves(model: LMModel):
     return out
 
 
-def _from_numpy(a: np.ndarray) -> torch.Tensor:
-    """A numpy array as a tensor, ``ml_dtypes.bfloat16`` included (which
-    ``torch.from_numpy`` refuses): its bits go across as int16."""
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(np.array(a).view(np.int16)).view(
-            torch.bfloat16)
-    return torch.from_numpy(np.array(a))
+def param_tree(model: LMModel) -> Pytree:
+    """The reference's parameter tree over the model's own parameters: a
+    top-level leaf is its parameter, a stacked block leaf the list of its
+    ``n_super`` per-superblock parameters (``models.stacked``).  The
+    optimisers update it in place; ``models.stacked.stack`` gives the
+    reference's stacked tensors."""
+    tree: Dict[str, Any] = {}
+    for keys, prms in _ref_leaves(model):
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = prms if keys[0] == "blocks" else prms[0]
+    return tree
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    """A copy of ``t`` as a numpy array (never a view of a parameter)."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         try:
             bf16 = np.dtype("bfloat16")     # registered by ml_dtypes
@@ -463,34 +500,11 @@ def params_from_reference(model: LMModel, tree: Pytree) -> LMModel:
     """Load the reference's ``model.init`` tree (nested dicts of numpy
     arrays, block leaves stacked over superblocks) into ``model``, cast to
     its parameter dtype.  Every leaf must be present with its shape."""
-    for keys, prms in _ref_leaves(model):
-        node = tree
-        for k in keys:
-            node = node[k]
-        arr = _from_numpy(np.asarray(node))
-        want = (len(prms), *prms[0].shape) if keys[0] == "blocks" \
-            else tuple(prms[0].shape)
-        if tuple(arr.shape) != want:
-            raise ValueError(f"{'/'.join(keys)}: shape {tuple(arr.shape)}, "
-                             f"model wants {want}")
-        if keys[0] != "blocks":
-            arr = arr[None]
-        for j, prm in enumerate(prms):
-            prm.copy_(arr[j])
+    stacked.copy_into(param_tree(model), tree)
     return model
 
 
 def params_to_reference(model: LMModel) -> Pytree:
     """The reference's parameter tree (nested dicts of numpy arrays in the
     parameter dtype, block leaves stacked over superblocks)."""
-    tree: Dict[str, Any] = {}
-    for keys, prms in _ref_leaves(model):
-        node = tree
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        if keys[0] == "blocks":
-            node[keys[-1]] = _to_numpy(torch.stack([p.detach()
-                                                    for p in prms]))
-        else:
-            node[keys[-1]] = _to_numpy(prms[0])
-    return tree
+    return stacked.map_leaves(_to_numpy, stacked.stack(param_tree(model)))

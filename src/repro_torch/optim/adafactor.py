@@ -1,0 +1,85 @@
+"""Adafactor: factored second moments — the memory-lean optimizer used for
+the 398B (jamba) and 1T (kimi-k2) archs, where AdamW fp32 state exceeds
+the device memory of a slice.
+
+For a [.., r, c] tensor the second moment is factored into row/col means
+(O(r+c) state); 0/1-D tensors keep the full accumulator.  First moment is
+omitted (beta1=0, the standard memory-lean setting).
+
+Every rule acts on the JAX package's stacked leaf (``models.stacked``):
+a stacked ``[n_super, d]`` norm scale is factored, its column means run
+across superblocks, and the update's RMS clip covers the whole leaf.  So
+the port stacks each leaf's grads for the update; state is stacked f32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import stacked
+from repro_torch.optim.schedule import _f32
+
+
+class Adafactor:
+    def __init__(self, lr_fn, decay=0.8, eps=1e-30, clip_threshold=1.0,
+                 weight_decay=0.0):
+        self.lr_fn = lr_fn
+        self.decay = decay
+        self.eps = eps
+        self.clip = clip_threshold
+        self.weight_decay = weight_decay
+
+    @staticmethod
+    def _factored(shape) -> bool:
+        return len(shape) >= 2
+
+    def init(self, params):
+        def vr(leaf):
+            s = stacked.ref_shape(leaf)
+            return torch.zeros(s[:-1] if self._factored(s) else s,
+                               dtype=torch.float32,
+                               device=stacked.device(leaf))
+
+        def vc(leaf):
+            s = stacked.ref_shape(leaf)
+            return torch.zeros(s[:-2] + s[-1:] if self._factored(s) else (1,),
+                               dtype=torch.float32,
+                               device=stacked.device(leaf))
+
+        return {"v_row": stacked.map_leaves(vr, params),
+                "v_col": stacked.map_leaves(vc, params)}
+
+    @torch.no_grad()
+    def update(self, grads, state, params, step):
+        """Updates ``params`` (a parameter tree) and ``state`` in place, as
+        the reference's donated update; returns both."""
+        t = _f32(step) + 1
+        beta2 = 1.0 - torch.pow(t, -self.decay)
+        lr = self.lr_fn(step)
+        for path, leaf in stacked.leaves(params):
+            shape = stacked.ref_shape(leaf)
+            g = stacked.get(grads, path)
+            g = torch.stack([s.float() for s in g]) \
+                if isinstance(g, list) else g.float()
+            vr = stacked.get(state["v_row"], path)
+            vc = stacked.get(state["v_col"], path)
+            g2 = torch.square(g) + self.eps
+            if self._factored(shape):
+                vr.copy_(beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1))
+                vc.copy_(beta2 * vc + (1 - beta2) * torch.mean(g2, dim=-2))
+                row_mean = torch.mean(vr, dim=-1, keepdim=True)
+                u = g * torch.rsqrt(vr / torch.clamp(row_mean, min=self.eps)
+                                    )[..., None] \
+                    * torch.rsqrt(vc)[..., None, :]
+            else:
+                vr.copy_(beta2 * vr + (1 - beta2) * g2)
+                u = g * torch.rsqrt(vr)
+            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            u = u / torch.clamp(rms / self.clip, min=1.0)
+            if not isinstance(leaf, list):
+                u = u[None]
+            for j, p in enumerate(stacked.slices(leaf)):
+                uj = u[j]
+                if len(shape) >= 2 and self.weight_decay:
+                    uj = uj + self.weight_decay * p.float()
+                p.copy_(p.float() - lr * uj)
+        return params, state

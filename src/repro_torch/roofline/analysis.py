@@ -93,15 +93,10 @@ def model_flops(arch: str, shape_name: str) -> float:
     return 2.0 * n_active * shape.global_batch
 
 
-def prefill_flops(cfg, batch: int, seq_len: int) -> float:
-    """FLOPs a prefill of ``batch`` prompts of ``seq_len`` tokens needs at
-    the least, 2 per multiply-add: every layer's projections and FFN for
-    every token (MoE: the router, ``top_k`` experts and the shared ones),
-    causal attention scores and P.V over the (query, key) pairs a query
-    may see (key <= query, within the sliding window), and the head on the
-    last position only (prefill returns last-position logits).  Mamba-2's
-    SSD scan is not counted, so for SSM layers the count falls short of
-    the work, and its time of the least time."""
+def _layer_flops(cfg, batch: int, seq_len: int):
+    """(projection and FFN FLOPs per token over all layers, causal
+    attention FLOPs of ``batch`` rows of ``seq_len`` tokens), 2 per
+    multiply-add; see ``prefill_flops``."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     n_mats = 3 if cfg.mlp_type == "swiglu" else 2
     w = cfg.swa_window or seq_len
@@ -124,8 +119,51 @@ def prefill_flops(cfg, batch: int, seq_len: int) -> float:
                 * m.d_ff_expert * (m.top_k + m.num_shared_experts)
         elif cfg.d_ff:
             per_token += 2 * n_mats * d * cfg.d_ff
-    head = 2 * d * cfg.vocab_size * batch
+    return per_token, attn
+
+
+def prefill_flops(cfg, batch: int, seq_len: int) -> float:
+    """FLOPs a prefill of ``batch`` prompts of ``seq_len`` tokens needs at
+    the least, 2 per multiply-add: every layer's projections and FFN for
+    every token (MoE: the router, ``top_k`` experts and the shared ones),
+    causal attention scores and P.V over the (query, key) pairs a query
+    may see (key <= query, within the sliding window), and the head on the
+    last position only (prefill returns last-position logits).  Mamba-2's
+    SSD scan is not counted, so for SSM layers the count falls short of
+    the work, and its time of the least time."""
+    per_token, attn = _layer_flops(cfg, batch, seq_len)
+    head = 2 * cfg.d_model * cfg.vocab_size * batch
     return float(per_token * batch * seq_len + attn + head)
+
+
+def train_step_flops(cfg, batch: int, seq_len: int, remat: bool = True,
+                     q_block: int = 2048, ce_chunk: int = 512) -> float:
+    """FLOPs one training step of ``batch`` rows of ``seq_len`` positions
+    (frontend embeddings included) needs, 2 per multiply-add.  The
+    forward is ``prefill_flops``'s layers and causal attention for every
+    position, and the head at every position that predicts a label
+    (``seq_len - 1``, or the text tokens after a frontend); backward is
+    twice the forward (a product's grads for both of its operands): 6·N·T
+    for the weights.  What runs again in backward: under remat
+    (``nothing_saveable``) each superblock's forward, 2·N·T more for the
+    layers' weights and once more the attention; attention's query blocks
+    of ``q_block`` rows, when a row is longer than one; the head's
+    chunks of ``ce_chunk`` positions, when the predicting positions split
+    into more than one (``train.trainstep.blocked_cross_entropy``).
+    Mamba-2's scan is not counted."""
+    per_token, attn = _layer_flops(cfg, batch, seq_len)
+    F = cfg.frontend_embeds
+    predicting = seq_len - F if F else seq_len - 1
+    head = 2 * cfg.d_model * cfg.vocab_size * batch * predicting
+    layers = per_token * batch * seq_len
+    total = 3 * (layers + attn + head)
+    if remat:
+        total += layers + attn
+    if seq_len > q_block:
+        total += attn
+    if predicting > ce_chunk and predicting % ce_chunk == 0:
+        total += head
+    return float(total)
 
 
 def decode_weight_bytes(cfg, bytes_per_param: int) -> float:

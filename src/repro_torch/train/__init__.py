@@ -1,3 +1,4 @@
-"""Training-framework features of the port.  So far the content-addressable
-checkpointer; the train step and fault supervisor come with the LM stack."""
+"""Training-framework features of the port: the content-addressable
+checkpointer, the train step and the fault supervisor."""
 from repro_torch.train.checkpoint import CACheckpointer  # noqa: F401
+from repro_torch.train.trainstep import make_train_step, blocked_cross_entropy  # noqa: F401

@@ -39,6 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.compat import tree_map
 from repro_torch.core.sai import SAI, WriteStats
 
 
@@ -60,19 +61,6 @@ def _walk(node, path: Tuple[str, ...], out: List[Tuple[str, Any]]):
         out.append(("/".join(path), node))
 
 
-def _map(fn, node):
-    """``node`` with ``fn`` applied to every leaf, same structure."""
-    if isinstance(node, dict):
-        items = [(k, _map(fn, v)) for k, v in node.items()]
-        return collections.OrderedDict(items) \
-            if isinstance(node, collections.OrderedDict) else dict(items)
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return type(node)(*(_map(fn, v) for v in node))
-    if isinstance(node, (list, tuple)):
-        return type(node)(_map(fn, v) for v in node)
-    return None if node is None else fn(node)
-
-
 def _dtype_name(dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16:
         return "bfloat16"
@@ -84,6 +72,12 @@ def _to_host(leaf, copy: bool = False):
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=copy)
     return np.array(leaf, copy=True) if copy else np.asarray(leaf)
+
+
+def host_copy(state):
+    """``state`` with every leaf copied to the host, ``None`` kept."""
+    return tree_map(lambda x: None if x is None else _to_host(x, copy=True),
+                    state)
 
 
 def _serialize(leaf) -> Tuple[bytes, List[int], str]:
@@ -165,8 +159,7 @@ class CACheckpointer:
                    extra: Optional[dict] = None) -> threading.Thread:
         """Non-blocking save: every leaf is copied to the host before this
         returns, then hashed and stored in a background thread."""
-        snap_p = _map(lambda x: _to_host(x, copy=True), params)
-        snap_o = _map(lambda x: _to_host(x, copy=True), opt_state)
+        snap_p, snap_o = host_copy(params), host_copy(opt_state)
         self.wait()
         t = threading.Thread(
             target=self.save, args=(step, snap_p, snap_o, extra),

@@ -140,3 +140,34 @@ def test_prefill_flops_and_decode_bytes_count_by_hand():
     assert analysis.decode_weight_bytes(tied, 4) == 4 * tied.param_count()
     with pytest.raises(ValueError):
         analysis.decode_weight_bytes(mix, 2)
+
+
+def test_train_step_flops_count_by_hand():
+    """minicpm-2b at the chip run's batch 4 x 2048: forward = layers +
+    causal attention + the head at the 2047 predicting positions;
+    backward twice that; remat one more forward of the layers and
+    attention."""
+    cfg = configs.get_config("minicpm-2b")
+    d, H, hd, f, V, L = 2304, 36, 64, 5760, 122753, 40
+    B, S = 4, 2048
+    layers = L * (2 * d * hd * 4 * H + 2 * 3 * d * f) * B * S
+    attn = L * 4 * H * hd * B * S * (S + 1) // 2
+    head = 2 * d * V * B * (S - 1)
+    fwd = layers + attn + head
+    assert analysis.train_step_flops(cfg, B, S, remat=False) == 3 * fwd
+    assert analysis.train_step_flops(cfg, B, S) == 3 * fwd + layers + attn
+    # a row longer than one query block recomputes attention once more,
+    # with or without remat; a row of CE chunks recomputes the head
+    S2 = 4097
+    layers2 = L * (2 * d * hd * 4 * H + 2 * 3 * d * f) * S2
+    attn2 = L * 4 * H * hd * S2 * (S2 + 1) // 2
+    head2 = 2 * d * V * (S2 - 1)
+    assert analysis.train_step_flops(cfg, 1, S2) == \
+        3 * (layers2 + attn2 + head2) + layers2 + 2 * attn2 + head2
+    # a frontend: only the text tokens predict
+    vlm = configs.get_config("internvl2-2b")
+    F = vlm.frontend_embeds
+    assert analysis.train_step_flops(vlm, 1, 300, remat=False) - \
+        analysis.train_step_flops(dataclasses.replace(vlm, frontend_embeds=0),
+                                  1, 300, remat=False) == \
+        3 * 2 * vlm.d_model * vlm.vocab_size * ((300 - F) - 299)

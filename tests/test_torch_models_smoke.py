@@ -1,10 +1,11 @@
-"""The port's mirror of ``tests/test_models_smoke.py``'s serving tests:
-per-architecture smoke configs on the CPU, output shapes and no NaNs,
-decode consistency with the full forward, and the SWA ring cache far
-past its window (whose greedy tokens also equal the JAX package's with
-the same weights).  The training-step test waits for the port's
-optimisers and train step; the two config-count tests are the configs'
-own (``tests/test_torch_configs.py`` holds the port's configs equal)."""
+"""The port's mirror of ``tests/test_models_smoke.py``:
+per-architecture smoke configs on the CPU, one train step (finite loss
+and grad norm, parameters moved), output shapes and no NaNs, decode
+consistency with the full forward, and the SWA ring cache far past its
+window (whose greedy tokens also equal the JAX package's with the same
+weights); the remat policies.  The two config-count tests are the
+configs' own (``tests/test_torch_configs.py`` holds the port's configs
+equal)."""
 import dataclasses
 
 import jax
@@ -15,12 +16,105 @@ import torch
 
 from repro.models.model import build_model as ref_build
 from repro_torch.configs import ARCH_NAMES, get_smoke_config
-from repro_torch.models.model import build_model, params_from_reference
+from repro_torch.models.model import (build_model, param_tree,
+                                      params_from_reference)
+from repro_torch.models import stacked
+from repro_torch.optim import make_optimizer, make_schedule
+from repro_torch.train.trainstep import make_loss_fn, make_train_step
 
 
 def _model(cfg, seed):
     return build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_train_step_smoke(arch):
+    cfg = get_smoke_config(arch)
+    model = _model(cfg, 0)
+    B, S = 2, 64
+    F = cfg.frontend_embeds
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - F),
+                                     generator=g)}
+    if F:
+        batch["embeds"] = torch.randn((B, F, cfg.d_model), generator=g)
+    opt = make_optimizer(cfg.optimizer,
+                         make_schedule(cfg.lr_schedule, 1e-3, 100))
+    params = param_tree(model)
+    before = stacked.stack(params)
+    step = make_train_step(model, opt)
+    # step 1: past LR warmup (lr(0) == 0 by schedule definition)
+    params2, _, m = step(params, opt.init(params), batch, 1)
+    assert torch.isfinite(m["loss"]), arch
+    assert torch.isfinite(m["grad_norm"]), arch
+    # params actually changed
+    delta = [float((a - b).abs().max()) for (_, a), (_, b) in zip(
+        stacked.leaves(stacked.stack(params2)), stacked.leaves(before))]
+    assert max(delta) > 0.0
+
+
+def _saved_bytes_and_grads(model, batch):
+    """Bytes autograd saves for backward over one loss, and the grads."""
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+    flat = [t for _, leaf in stacked.leaves(param_tree(model))
+            for t in stacked.slices(leaf)]
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = make_loss_fn(model)(batch)
+    return sum(saved), torch.autograd.grad(loss, flat)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "jamba-1.5-large-398b"])
+def test_remat_same_grads_fewer_saved_bytes(arch):
+    """``nothing_saveable`` recomputes each superblock in backward: the
+    grads equal ``everything_saveable``'s bit for bit, and the forward
+    saves fewer bytes for backward (the superblocks' inputs, not their
+    activations)."""
+    cfg = get_smoke_config(arch)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))}
+    out = {}
+    for policy in ("nothing_saveable", "everything_saveable"):
+        model = build_model(cfg, device="cpu", remat_policy=policy).init(
+            torch.Generator().manual_seed(0))
+        out[policy] = _saved_bytes_and_grads(model, batch)
+    (b_remat, g_remat), (b_all, g_all) = out["nothing_saveable"], \
+        out["everything_saveable"]
+    assert all(torch.equal(a, b) for a, b in zip(g_remat, g_all))
+    assert b_remat < b_all / 2, (b_remat, b_all)
+
+
+def test_attention_blocks_recomputed_under_grad():
+    """A row longer than one query block: attention saves no block's
+    scores for backward under grad (each block is recomputed), and its
+    grads equal those of one block over the whole row."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(0)
+    B, S, H, K, hd = 1, 64, 4, 2, 8
+    q, k, v = (torch.randn((B, S, n, hd), generator=g).requires_grad_(True)
+               for n in (H, K, K))
+    pos = torch.arange(S)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t.shape) or t, lambda t: t):
+        o = L.gqa_attention(q, k, v, pos, pos, q_block=16)
+    assert all(tuple(s)[-2:] != (16, S) for s in saved), saved
+    want = L.gqa_attention(q, k, v, pos, pos, q_block=S)
+    torch.testing.assert_close(o, want, rtol=0, atol=1e-6)
+    ga = torch.autograd.grad(o.square().sum(), [q, k, v])
+    gb = torch.autograd.grad(want.square().sum(), [q, k, v])
+    for a, b in zip(ga, gb):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="dryrun"):
+        build_model(get_smoke_config("llama3-8b"), device="cpu",
+                    remat_policy="dots_saveable")
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
