@@ -3,7 +3,7 @@
 GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
-CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs ten phases,
+CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs eleven phases,
 each printing its results:
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
@@ -93,9 +93,12 @@ each printing its results:
    serving 8 seeded requests (mean TTFT, steps).  Checks: decode against
    the full forward at full width in f32 compute, the batcher's logits
    against sequential decoding within a bound from bf16 rounding (tokens
-   equal where the margin allows), the card against the CPU (llama3-8b's
-   widths in 2 layers, f32), mamba2-1.3b at full width and mixtral-8x7b's
-   widths in 2 layers (prefill, 8 decode steps, decode against forward),
+   equal where the margin allows), the bf16 score products on the tensor
+   cores (decode at llama3-8b's widths, training attention and its grads
+   at minicpm-2b's) against the f32 products, the card against the CPU
+   (llama3-8b's widths in 2 layers, f32), mamba2-1.3b at full width and
+   mixtral-8x7b's widths in 2 layers (prefill, 8 decode steps, decode
+   against forward),
    and every architecture's smoke config on the card against the CPU.
    It fails if it launched any of the ported kernels;
 10. the training path (``repro_torch.optim``, ``repro_torch.train``,
@@ -115,7 +118,14 @@ each printing its results:
    through ``ca='cdc-gear'`` on the card, a failure at step 120): one
    restart from the last checkpoint, every checkpoint restored tensor for
    tensor through a new engine, save and restore MB/s and dedup per
-   checkpoint, with ``gear`` and ``md5_direct`` launched.
+   checkpoint, with ``gear`` and ``md5_direct`` launched;
+11. the distributed slice (``repro_torch.models.sharding``,
+   ``repro_torch.launch.mesh``, ``repro_torch.optim.grad_compress``) on
+   a one-card NCCL mesh: a DTensor train step under ``make_shard_ctx``
+   (minicpm-2b's widths in 2 layers, f32) against the plain step from the
+   same weights and batch, within phase 10's tolerances, both steps'
+   times; ``quantize_int8`` on the card equal to the CPU bit for bit, and
+   the int8 cross-pod sync over 20 steps within 0.05.
 
 Any failed check raises, so the script exits non-zero.  The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -2061,6 +2071,71 @@ def arch_smoke_on_card(torch, np, dev):
               f"{rel:.2e}")
 
 
+def score_products_on_card(torch, dev, C: int):
+    """(c) The bf16 score products on the tensor cores (``ScoresF32`` and
+    the decode step's block-diagonal product, ``aten::bmm.dtype``) against
+    the f32 products of the same bf16 values on the CUDA cores: decode
+    attention at llama3-8b's widths against a cache of C slots, and
+    ``gqa_attention`` forward and grads at minicpm-2b's widths over two
+    checkpointed query blocks.  The two sum the same exact products in
+    another order, so the f32 scores agree to f32 rounding and a bf16
+    result moves by one rounding of itself or of a probability:
+    within u (max|v| + max|out|) for decode (u = 2**-8), and within 2u of
+    each result's largest for the training attention and its grads."""
+    from repro_torch.models import layers
+    gen = torch.Generator(dev).manual_seed(LM_SEED + 2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    def both(fn):
+        got = fn()
+        real = layers._tensor_core_scores
+        layers._tensor_core_scores = lambda a, b: False
+        try:
+            want = fn()
+        finally:
+            layers._tensor_core_scores = real
+        return got, want
+
+    B, H, K, hd = 4, 32, 8, 128
+    q, kc, vc = randn(B, 1, H, hd), randn(B, C, K, hd), randn(B, C, K, hd)
+    cur = torch.tensor([C - 1, C // 2, 17, C - 1], device=dev)
+    with torch.inference_mode():
+        got, want = both(lambda: layers.decode_attention(
+            q, kc, vc, torch.arange(C, device=dev), cur))
+    err = float((got.float() - want.float()).abs().max())
+    tol = BF16_U * (float(vc.float().abs().max())
+                    + float(want.float().abs().max()))
+    print(f"(c) decode attention, bf16, B {B}, cache {C} x {K} x {hd}, "
+          f"{H} heads: tensor cores (cache read in place) against f32 "
+          f"products, max abs err {err:.3e} (limit {tol:.3e})")
+    check(got.dtype == torch.bfloat16 and err <= tol,
+          "(c) decode attention on the tensor cores == f32 products")
+
+    S, H, hd, qb = 1024, 36, 64, 512
+    ins = [randn(1, S, H, hd) for _ in range(3)]
+    w = torch.randn((1, S, H, hd), generator=gen, device=dev)
+    pos = torch.arange(S, device=dev)
+
+    def train_attention():
+        x = [t.clone().requires_grad_() for t in ins]
+        out = layers.gqa_attention(*x, pos, pos, q_block=qb)
+        grads = torch.autograd.grad((out.float() * w).sum(), x)
+        return [out.detach(), *grads]
+    errs = {}
+    for name, g, wt in zip(("out", "dq", "dk", "dv"), *both(train_attention)):
+        check(g.dtype == torch.bfloat16, f"(c) {name} in bf16")
+        errs[name] = float((g.float() - wt.float()).abs().max()) \
+            / float(wt.float().abs().max())
+    print(f"(c) gqa_attention under grad, bf16, S {S}, {H} heads of {hd}, "
+          f"two query blocks of {qb}: tensor cores against f32 products, "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + f" of each one's largest (limit {2 * BF16_U:.2e})")
+    check(max(errs.values()) <= 2 * BF16_U,
+          "(c) training attention on the tensor cores == f32 products")
+
+
 def phase_lm(torch, np, smi: str):
     """Phase 9: the LM serving path on the card."""
     from repro_torch.configs import get_config
@@ -2136,6 +2211,9 @@ def phase_lm(torch, np, smi: str):
     with lm_variant(model, cdt=torch.float32):
         decode_vs_forward(torch, model, gen, DECODE_B, DECODE_S,
                           f"(c) {cfg.name} f32 compute, bf16 weights")
+
+    # (c) the score products on the tensor cores against the f32 ones
+    score_products_on_card(torch, dev, S + n_new)
 
     # (b) the continuous batcher on the same model
     rng = np.random.default_rng(LM_SEED)
@@ -2312,79 +2390,92 @@ class _GradRecorder:
         return self.opt.update(grads, state, params, step)
 
 
-def train_card_vs_cpu(torch, np, cfg, dev, B: int, S: int, what: str):
-    """One train step (step 1) from the same weights and batch on the card
-    and on the CPU: loss and grad norm within TRAIN_TOL relative, every
-    grad within TRAIN_TOL of its leaf's largest.  Then, from the same
-    weights, the card's optimiser fed the CPU's grads: its updated
-    parameters within one ulp plus TRAIN_TOL of the CPU step's largest
-    update of the CPU step's.
-    Returns the worst ratios."""
-    from repro_torch.data import make_pipeline
-    from repro_torch.models.model import build_model, param_tree
+def step_against(torch, cfg, a, b, batches, what: str, label: str):
+    """One train step (step 1) of model ``a`` and of model ``b``, the one
+    held right, from the same weights; ``batches`` is (a's, b's), the
+    same batch.  Loss and grad norm within TRAIN_TOL relative, every grad
+    within TRAIN_TOL of its leaf's largest.  Then, from the same weights,
+    ``a``'s optimiser fed ``b``'s grads: its updated parameters within
+    one ulp plus TRAIN_TOL of ``b``'s step's largest update of ``b``'s.
+    Grads and parameters are compared whole (a DTensor gathered) on
+    ``b``'s device.  Returns the worst ratios, and each model's
+    (optimiser, params, state, step function) after its step."""
+    from torch.distributed.tensor import DTensor
     from repro_torch.models import stacked
+    from repro_torch.models.model import param_tree
     from repro_torch.optim import make_optimizer, make_schedule
-    from repro_torch.train.trainstep import grad_tree, make_train_step
+    from repro_torch.train.trainstep import make_train_step
+
+    def near(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).to(
+            b.device)
 
     def optimizer():
         return _GradRecorder(make_optimizer(
             cfg.optimizer, make_schedule(cfg.lr_schedule, TRAIN_LR, 100)))
+    start = stacked.map_leaves(lambda t: near(t).clone(),
+                               stacked.stack(param_tree(b)))
+    runs, res = [], []
+    for m, batch in zip((a, b), batches):
+        rec = optimizer()
+        params = param_tree(m)
+        state = rec.opt.init(params)
+        step = make_train_step(m, rec)
+        _, _, met = step(params, state, batch, 1)
+        runs.append((rec, params, state, step))
+        res.append(({k: float(v) for k, v in met.items()},
+                    stacked.map_leaves(near, rec.grads)))
+    (m_a, g_a), (m_b, g_b) = res
+    rel = {k: abs(m_a[k] - m_b[k]) / max(abs(m_b[k]), 1e-30)
+           for k in ("loss", "grad_norm")}
+    g_worst = max(float((stacked.get(g_a, path) - g).abs().max())
+                  / max(float(g.abs().max()), 1e-30)
+                  for path, g in stacked.leaves(g_b))
+    # a's optimiser on b's grads, from the starting weights
+    want = dict(stacked.leaves(stacked.map_leaves(
+        near, stacked.stack(runs[1][1]))))
+    u_scale = max(float((w - stacked.get(start, path)).abs().max())
+                  for path, w in want.items())
+    params = runs[0][1]
+    stacked.copy_into(params, start)
+    rec = optimizer()
+    rec.update(stacked.like(params, g_b), rec.opt.init(params), params, 1)
+    u_worst = 0.0
+    for path, got in stacked.leaves(stacked.stack(params)):
+        got, ref = near(got), want[path]
+        top = torch.maximum(got.abs(), ref.abs())
+        ulp = torch.nextafter(top, torch.full_like(top, math.inf)) - top
+        excess = ((got - ref).abs() - ulp).clamp(min=0)
+        u_worst = max(u_worst, float(excess.max()) / u_scale)
+    B, S = batches[1]["tokens"].shape
+    print(f"{what}: {label}, one train step (B {B}, S {S}): loss "
+          f"{m_a['loss']:.6f} / {m_b['loss']:.6f} (rel {rel['loss']:.2e}),"
+          f" grad_norm rel {rel['grad_norm']:.2e}, grads {g_worst:.2e} of "
+          f"each leaf's largest; {cfg.optimizer} on the same grads: "
+          f"parameters apart by {u_worst:.2e} of the largest update "
+          f"{u_scale:.3e} beyond one ulp (limit {TRAIN_TOL})")
+    check(max(rel.values()) <= TRAIN_TOL,
+          f"{what}: loss and grad norm, {label}")
+    check(g_worst <= TRAIN_TOL, f"{what}: grads, {label}")
+    check(u_worst <= TRAIN_TOL, f"{what}: updates, {label}")
+    check(all(math.isfinite(v) for v in m_a.values()),
+          f"{what}: finite metrics")
+    return (max(rel.values()), g_worst, u_worst), runs
+
+
+def train_card_vs_cpu(torch, cfg, dev, B: int, S: int, what: str):
+    """``step_against``: the card's step held against the CPU's.  Returns
+    the worst ratios."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models.model import build_model
     cpu = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(TRAIN_SEED))
     card = build_model(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
-    start = stacked.map_leaves(lambda t: t.clone(),
-                               stacked.stack(param_tree(cpu)))
     batch = make_pipeline(cfg, S, B, seed=TRAIN_SEED).batch(0)
-    res = {}
-    for name, m in (("card", card), ("cpu", cpu)):
-        rec = optimizer()
-        params = param_tree(m)
-        _, _, met = make_train_step(m, rec)(params, rec.opt.init(params),
-                                            batch, 1)
-        res[name] = ({k: float(v) for k, v in met.items()},
-                     stacked.map_leaves(lambda t: t.cpu(), rec.grads))
-    (m_card, g_card), (m_cpu, g_cpu) = res["card"], res["cpu"]
-    rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
-           for k in ("loss", "grad_norm")}
-    g_worst = 0.0
-    for path, gc in stacked.leaves(g_cpu):
-        g_scale = float(gc.abs().max())
-        if g_scale > 0:
-            g_worst = max(g_worst, float(
-                (stacked.get(g_card, path) - gc).abs().max()) / g_scale)
-    # the card's optimiser on the CPU's grads, from the starting weights
-    p_cpu = dict(stacked.leaves(stacked.stack(param_tree(cpu))))
-    u_cpu = {p: a - stacked.get(start, p) for p, a in p_cpu.items()}
-    params = param_tree(card)
-    stacked.copy_into(params, start)
-    flat = []
-    for path, leaf in stacked.leaves(params):
-        g = stacked.get(g_cpu, path).to(dev)
-        flat += list(g) if isinstance(leaf, list) else [g]
-    rec = optimizer()
-    rec.update(grad_tree(params, flat), rec.opt.init(params), params, 1)
-    u_scale = max(float(u.abs().max()) for u in u_cpu.values())
-    u_worst = 0.0
-    for path, a in stacked.leaves(stacked.stack(params)):
-        got, want = a.cpu(), p_cpu[path]
-        top = torch.maximum(got.abs(), want.abs())
-        ulp = torch.nextafter(top, torch.full_like(top, math.inf)) - top
-        excess = ((got - want).abs() - ulp).clamp(min=0)
-        u_worst = max(u_worst, float(excess.max()) / u_scale)
-    print(f"{what}: card against CPU, one train step (B {B}, S {S}): loss "
-          f"{m_card['loss']:.6f} / {m_cpu['loss']:.6f} (rel {rel['loss']:.2e}),"
-          f" grad_norm rel {rel['grad_norm']:.2e}, grads {g_worst:.2e} of "
-          f"each leaf's largest; the card's {cfg.optimizer} on the CPU's "
-          f"grads: parameters apart by {u_worst:.2e} of the largest update "
-          f"{u_scale:.3e} beyond one ulp (limit {TRAIN_TOL})")
-    check(rel["loss"] <= TRAIN_TOL and rel["grad_norm"] <= TRAIN_TOL,
-          f"{what}: loss and grad norm on the card == CPU")
-    check(g_worst <= TRAIN_TOL, f"{what}: grads on the card == CPU")
-    check(u_worst <= TRAIN_TOL, f"{what}: updates on the card == CPU")
-    check(all(math.isfinite(v) for v in m_card.values()),
-          f"{what}: finite metrics on the card")
-    return max(rel.values()), g_worst, u_worst
+    worst, _ = step_against(torch, cfg, card, cpu, (batch, batch), what,
+                            "card against CPU")
+    return worst
 
 
 def remat_card_vs_cpu(torch, cfg, dev, what: str):
@@ -2505,12 +2596,12 @@ def phase_train(torch, np, smi: str):
     c2 = dataclasses.replace(get_config("minicpm-2b"),
                              num_layers=TRAIN_CPU_LAYERS,
                              param_dtype="float32", compute_dtype="float32")
-    train_card_vs_cpu(torch, np, c2, dev, TRAIN_CPU_B, TRAIN_CPU_S,
+    train_card_vs_cpu(torch, c2, dev, TRAIN_CPU_B, TRAIN_CPU_S,
                       f"(b) {c2.name} widths, {c2.num_layers} layers, f32")
     remat_card_vs_cpu(torch, c2, dev, f"(b) {c2.name} widths, f32")
     worst = [0.0, 0.0, 0.0]
     for arch in ARCH_NAMES:
-        r = train_card_vs_cpu(torch, np, get_smoke_config(arch), dev, 2, 64,
+        r = train_card_vs_cpu(torch, get_smoke_config(arch), dev, 2, 64,
                               f"(b) {arch} smoke")
         worst = [max(a, b) for a, b in zip(worst, r)]
     print(f"(b) every smoke config: loss/grad_norm {worst[0]:.2e}, grads "
@@ -2597,6 +2688,139 @@ def phase_train(torch, np, smi: str):
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 11: the distributed slice on one card.  NCCL puts one rank on a
+# card, so the mesh is (1, 1) ('data', 'model') over one process; (a) a
+# DTensor train step (make_shard_ctx) against the plain step from the same
+# weights and batch, minicpm-2b's widths in TRAIN_CPU_LAYERS layers, f32,
+# as phase 10 (b), within phase 10 (b)'s tolerances, and both steps'
+# times: CUDA events, median of DIST_TIMED steps after one warm-up;
+# (b) int8 cross-pod sync: quantize_int8 on the card == the CPU bit for
+# bit, and make_cross_pod_sync on a (1, 1, 1) ('pod', 'data', 'model')
+# mesh over 20 steps of the reference test's data within 0.05.  The batch
+# is DIST_B x DIST_S, sharded over 'data': phase 10 (b)'s smoke batch (a
+# batch of 1 is the reference's unsharded case)
+DIST_B, DIST_S, DIST_TIMED = 2, 64, 5
+SYNC_STEPS, SYNC_TOL = 20, 0.05
+
+
+def dist_step_vs_plain(torch, cfg, ctx, dev, B: int, S: int, smi: str):
+    """(a) ``step_against``: the sharded model's step held against the
+    plain one's from the same weights and batch.  Then DIST_TIMED more
+    steps of each, timed."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import stacked
+    from repro_torch.models.model import build_model, param_tree
+    plain = build_model(cfg, device=dev).init(
+        torch.Generator(dev).manual_seed(TRAIN_SEED))
+    sharded = build_model(cfg, device=dev, ctx=ctx)
+    stacked.copy_into(param_tree(sharded), stacked.stack(param_tree(plain)))
+    check(all(isinstance(t, DTensor) for t in sharded.parameters()),
+          "(a) every parameter of the sharded model is a DTensor")
+    tokens = torch.as_tensor(make_pipeline(cfg, S, B, seed=TRAIN_SEED)
+                             .batch(0)["tokens"]).to(dev)
+    batches = ({"tokens": distribute_tensor(tokens, ctx.mesh,
+                                            [Shard(0), Replicate()])},
+               {"tokens": tokens})
+    _, runs = step_against(
+        torch, cfg, sharded, plain, batches,
+        f"(a) {cfg.name} widths, {cfg.num_layers} layers, f32",
+        "sharded step (DTensor on the (1, 1) mesh) against the plain step "
+        "on the card")
+    times = {}
+    for name, (_, params, state, step), batch in zip(
+            ("sharded", "plain"), runs, batches):
+        ms = []
+        for i in range(DIST_TIMED + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            step(params, state, batch, 2 + i)
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        times[name] = statistics.median(ms[1:])
+    print(f"(a) train step [{smi}]: plain {times['plain']:.3f} ms, sharded "
+          f"{times['sharded']:.3f} ms (median of {DIST_TIMED} after a "
+          f"warm-up, CUDA events), so DTensor costs "
+          f"{times['sharded'] - times['plain']:.3f} ms a step on one card")
+
+
+def phase_dist(torch, np, smi: str):
+    """Phase 11: the distributed slice on one card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn, gear, md5, sliding_md5
+    from repro_torch.launch.mesh import make_shard_ctx
+    from repro_torch.models.sharding import P
+    from repro_torch.optim.grad_compress import (init_error_state,
+                                                 make_cross_pod_sync,
+                                                 quantize_int8)
+    print("== phase 11: distributed slice (DTensor train step and int8 "
+          "cross-pod sync on a one-card NCCL mesh)")
+    t_phase = time.perf_counter()
+    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+                "gear": gear.LAUNCHES, "flash_attn": flash_attn.LAUNCHES,
+                "flash_tf32_split": flash_attn.SPLIT_LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            ctx = make_shard_ctx(mesh)
+            c2 = dataclasses.replace(get_config("minicpm-2b"),
+                                     num_layers=TRAIN_CPU_LAYERS,
+                                     param_dtype="float32",
+                                     compute_dtype="float32")
+            dist_step_vs_plain(torch, c2, ctx, dev, DIST_B, DIST_S, smi)
+            torch.cuda.empty_cache()
+
+            # (b) quantisation on the card == the CPU, bit for bit
+            rng = np.random.default_rng(0)
+            for shape, s in (((8, 16), 1.0), ((2304, 5760), 1e-3),
+                             ((4096,), 1e4)):
+                g = (rng.standard_normal(shape) * s).astype(np.float32)
+                q_card, s_card = quantize_int8(torch.from_numpy(g).to(dev))
+                q_cpu, s_cpu = quantize_int8(torch.from_numpy(g))
+                check(torch.equal(q_card.cpu(), q_cpu)
+                      and torch.equal(s_card.cpu().view(torch.int32),
+                                      s_cpu.view(torch.int32)),
+                      f"(b) quantize_int8 {shape} on the card == CPU bit "
+                      f"for bit")
+            print("(b) quantize_int8 on the card == the CPU bit for bit at "
+                  "(8, 16), (2304, 5760) and (4096,)")
+            pods = init_device_mesh("cuda", (1, 1, 1),
+                                    mesh_dim_names=("pod", "data", "model"))
+            sync = make_cross_pod_sync(pods, {"w": P(None, None)})
+            rng = np.random.default_rng(0)
+            accum_true = np.zeros((8, 16), np.float32)
+            accum_q = np.zeros((8, 16), np.float32)
+            err = init_error_state({"w": torch.zeros(8, 16, device=dev)})
+            for _ in range(SYNC_STEPS):
+                g = rng.standard_normal((8, 16)).astype(np.float32)
+                out, err = sync({"w": torch.from_numpy(g).to(dev)}, err)
+                accum_true += g
+                accum_q += out["w"].cpu().numpy()
+            rel = float(np.abs(accum_q - accum_true).max()
+                        / np.abs(accum_true).max())
+            print(f"(b) make_cross_pod_sync on the (1, 1, 1) mesh, "
+                  f"{SYNC_STEPS} steps: relative error {rel:.4e} "
+                  f"(limit {SYNC_TOL})")
+            check(rel < SYNC_TOL, "(b) cross-pod sync within its bound")
+        finally:
+            dist.destroy_process_group()
+    launches = {k: c.value for k, c in counters.items()}
+    check(not any(launches.values()),
+          "phase 11 launches none of the ported kernels")
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2628,6 +2852,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lm(torch, np, smi)
     phase_train(torch, np, smi)
+    phase_dist(torch, np, smi)
     kernels = []
     for name, counter, source, replaces in [
             ("md5_direct", "md5", "src/repro_torch/kernels/csrc/md5.cu",

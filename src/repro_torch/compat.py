@@ -17,6 +17,7 @@ tree_leaves = _pt.tree_leaves
 tree_flatten = _pt.tree_flatten
 tree_structure = _pt.tree_structure
 tree_flatten_with_path = _pt.tree_flatten_with_path
+tree_map_with_path = _pt.tree_map_with_path
 
 
 def tree_unflatten(treedef, leaves):

@@ -9,9 +9,13 @@ O(S^2).
 
 Numerics follow the JAX package's ``models/layers.py`` step for step:
 products that JAX asks for in f32 (``preferred_element_type``) take f32
-operands here, the softmax runs in f32, and its probabilities are cast
-to the compute dtype before P.V.  No fused attention call (SDPA, the
-port's flash kernel) is used, because each rounds P elsewhere.
+operands here on the CPU; on the card a bf16/f16 product with f32 results
+runs on the tensor cores with f32 outputs (``ScoresF32``, the same exact
+products summed in f32).  The softmax runs in f32, and its probabilities
+are cast to the compute dtype before P.V.  No fused attention call (SDPA,
+the port's flash kernel) is used, because each rounds P elsewhere.  Under
+grad the scores are scaled and masked out of place (an in-place op on
+them makes autograd copy them); serving scales and masks in place.
 """
 from __future__ import annotations
 
@@ -69,6 +73,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------
 # attention
 # --------------------------------------------------------------------------
+class ScoresF32(torch.autograd.Function):
+    """``a @ b^T`` in f32 from bf16 or f16 operands, on the tensor cores:
+    a: [N, M, hd], b: [N, T, hd] -> [N, M, T] f32 (``aten::bmm.dtype``, a
+    CUDA kernel only, with no derivative of its own).  Each product of two
+    bf16 (f16) values is exact in f32, so this is JAX's
+    ``preferred_element_type=f32`` product.  Backward, as JAX's transpose
+    does, multiplies the f32 grad by the other operand promoted to f32 and
+    rounds the result to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b.transpose(1, 2), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        da = torch.bmm(grad, b.float()).to(a.dtype)
+        db = torch.bmm(grad.transpose(1, 2), a.float()).to(b.dtype)
+        return da, db
+
+
+def _tensor_core_scores(q, k) -> bool:
+    """Whether a score product with f32 results of ``q`` and ``k`` runs as
+    ``ScoresF32``: both CUDA tensors of one 16-bit float dtype."""
+    return (q.is_cuda and q.dtype == k.dtype
+            and q.dtype in (torch.bfloat16, torch.float16))
+
+
 def _attend_block(qh, kh, vh, q_pos, k_pos, swa_window, softcap,
                   score_dtype=torch.float32):
     """Softmax attention for one query block against a KV prefix.
@@ -80,18 +113,28 @@ def _attend_block(qh, kh, vh, q_pos, k_pos, swa_window, softcap,
     and softmax computes in f32.
     returns [B, K, G, Tq, hd]
     """
-    scale = torch.full((), qh.shape[-1] ** -0.5, dtype=score_dtype,
-                       device=qh.device)
-    ct = torch.promote_types(qh.dtype, score_dtype)
-    scores = torch.einsum("bkgth,bksh->bkgts", qh.to(ct), kh.to(ct)
-                          ).to(score_dtype)
-    scores.mul_(scale)                                     # a fresh tensor
+    B, K, G, Tq, hd = qh.shape
+    Tk = kh.shape[2]
+    # the scale as the reference rounds it to the scores' dtype; a Python
+    # number multiplies in one vectorised pass with the same result
+    scale = torch.tensor(hd ** -0.5, dtype=score_dtype).item()
+    if score_dtype == torch.float32 and _tensor_core_scores(qh, kh):
+        scores = ScoresF32.apply(qh.reshape(B * K, G * Tq, hd),
+                                 kh.reshape(B * K, Tk, hd)
+                                 ).view(B, K, G, Tq, Tk)
+    else:
+        ct = torch.promote_types(qh.dtype, score_dtype)
+        scores = torch.einsum("bkgth,bksh->bkgts", qh.to(ct), kh.to(ct)
+                              ).to(score_dtype)
+    in_place = not torch.is_grad_enabled()
+    scores = scores.mul_(scale) if in_place else scores * scale
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
     mask = k_pos[None, :] <= q_pos[:, None]                # causal  [Tq, Tk]
     if swa_window:
         mask &= (q_pos[:, None] - k_pos[None, :]) < swa_window
-    scores = scores.masked_fill_(~mask, NEG_INF)
+    scores = scores.masked_fill_(~mask, NEG_INF) if in_place \
+        else torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores.float(), dim=-1).to(qh.dtype)
     ct = torch.promote_types(probs.dtype, vh.dtype)
     return torch.einsum("bkgts,bksh->bkgth", probs.to(ct), vh.to(ct))
@@ -144,12 +187,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     masked out); cur_pos: scalar or [B] (ragged continuous batching).
     """
     B, _, H, hd = q.shape
-    K = k_cache.shape[2]
+    C, K = k_cache.shape[1:3]
     G = H // K
     qg = q.reshape(B, K, G, hd)
     scale = hd ** -0.5
-    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(),
-                          k_cache.float()) * scale
+    tensor_cores = _tensor_core_scores(qg, k_cache)
+    if tensor_cores:
+        # the cache read in place as [B, C, K * hd]: one product against q
+        # laid out block-diagonally ([B, K * G, K * hd], zero outside each
+        # head's own block) gives every head's scores; the zeros add
+        # nothing, and K times the products still leave the product bound
+        # by the cache's bytes
+        eye = torch.eye(K, dtype=torch.bool, device=q.device)
+        qbd = torch.where(eye[:, None, :, None], qg[:, :, :, None, :], 0)
+        scores = torch.bmm(qbd.reshape(B, K * G, K * hd),
+                           k_cache.reshape(B, C, K * hd).transpose(1, 2),
+                           out_dtype=torch.float32).view(B, K, G, C) * scale
+    else:
+        scores = torch.einsum("bkgh,bskh->bkgs", qg.float(),
+                              k_cache.float()) * scale
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
     sp = slot_positions if slot_positions.ndim == 2 \
@@ -158,6 +214,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     valid = (sp >= 0) & (sp <= cp)                         # [B or 1, C]
     scores = scores.masked_fill_(~valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if tensor_cores:
+        # every head's probabilities against the whole cache row, in
+        # place; each head keeps its own block of the [K * G, K * hd] result
+        pv = torch.bmm(probs.reshape(B, K * G, C),
+                       v_cache.reshape(B, C, K * hd))
+        out = torch.diagonal(pv.view(B, K, G, K, hd), dim1=1, dim2=3)
+        return out.permute(0, 3, 1, 2).reshape(B, 1, H, hd)
     ct = torch.promote_types(probs.dtype, v_cache.dtype)
     out = torch.einsum("bkgs,bskh->bkgh", probs.to(ct), v_cache.to(ct))
     return out.reshape(B, 1, H, hd)

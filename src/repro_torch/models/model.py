@@ -13,8 +13,17 @@ mechanically.
 The serving cache keeps the reference's stacked layout,
 ``{pos<i>: {k, v} | {ssm, conv_x, conv_B, conv_C}}`` with a leading
 ``n_super`` axis.  ``decode_step`` writes it in place (the reference's
-``donate_argnums``) and returns it.  There is no sharding context yet
-(one card).
+``donate_argnums``) and returns it.
+
+Sharding: under a ``ShardCtx`` (``models.sharding``) every parameter is a
+DTensor on the context's mesh, placed by the reference's partition specs
+(a block parameter takes its stacked leaf's spec without the leading
+superblock dim), and the training forward constrains the activations to
+the data axes at each superblock, as the reference does.  A vocab-sharded
+embedding is looked up by ``VocabParallelEmbed``.  Ops that mix a DTensor
+with a plain tensor (positions, masks, rope tables) run under
+``sharded_scope``, which treats the plain tensor as replicated; the
+train step holds it over the forward and the backward.
 
 Remat: under ``remat_policy="nothing_saveable"`` (the reference's
 baseline) each superblock of the training forward runs under
@@ -25,12 +34,17 @@ activation.  Serving (``prefill``, ``decode_step``) runs under
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import compat
@@ -39,6 +53,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import stacked
+from repro_torch.models.sharding import (P, ShardCtx, block_spec, cache_spec,
+                                         constrain, param_spec, param_specs,
+                                         placements)
 
 Pytree = Any
 
@@ -78,9 +95,56 @@ class Params(nn.Module):
         return getattr(self, name)
 
 
+def _heads_in(x, w):
+    """The reference's ``einsum("bsd,dhe->bshe", x, w)``: one product of
+    x [B, S, d] and w [d, H, hd] taken as [d, H * hd].  Written as a
+    matrix product so that a DTensor sharded over the batch and the heads
+    only ever merges dims whose leading one is the sharded one."""
+    out = x @ w.to(x.dtype).flatten(1)
+    return out.unflatten(-1, w.shape[1:])
+
+
+def _heads_out(o, w):
+    """The reference's ``einsum("bshe,hed->bsd", o, w)``: o [B, S, H, hd]
+    taken as [B, S, H * hd] against w [H, hd, d] as [H * hd, d]."""
+    return o.flatten(2) @ w.to(o.dtype).flatten(0, 1)
+
+
+class VocabParallelEmbed(torch.autograd.Function):
+    """Embedding lookup of a table sharded by rows (the vocab) over one
+    process group: each rank looks up the ids in its own rows, zeros the
+    rest, and the group sums the results.  Backward adds the output's
+    grad into this rank's rows only (the output's grad is the same on
+    every rank of the group, so no collective).  On plain (local)
+    tensors: ``ids`` any shape, ``table`` this rank's ``[V / n, d]``
+    rows, ``start`` its first row's id."""
+
+    @staticmethod
+    def forward(ctx, ids, table, start: int, group):
+        local = ids - start
+        hit = (local >= 0) & (local < table.shape[0])
+        local = torch.where(hit, local, 0)
+        out = nn.functional.embedding(local, table) * hit[..., None]
+        dist.all_reduce(out, group=group)
+        ctx.save_for_backward(local, hit)
+        ctx.rows = table.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        local, hit = ctx.saved_tensors
+        d = grad.shape[-1]
+        g = (grad * hit[..., None]).reshape(-1, d)
+        dtable = torch.zeros((ctx.rows, d), dtype=grad.dtype,
+                             device=grad.device)
+        dtable.index_add_(0, local.reshape(-1), g)
+        return None, dtable, None, None
+
+
 class LMModel(nn.Module):
     def __init__(self, cfg: ArchConfig, attn_score_dtype: str = "float32",
-                 device="cuda", remat_policy: str = "nothing_saveable"):
+                 device="cuda", remat_policy: str = "nothing_saveable", *,
+                 ctx: Optional[ShardCtx] = None):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(
@@ -89,10 +153,19 @@ class LMModel(nn.Module):
                 f"(launch/dryrun.py), not yet ported")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.ctx = ctx
         self.remat_policy = remat_policy
         self.score_dtype = _DTYPES[attn_score_dtype]
-        self.n_heads = cfg.num_heads
-        self.n_kv = cfg.kv_heads
+        # MHA head counts that do not divide the model axis replicate
+        # attention under the baseline rules; with ctx.uneven, H (and K,
+        # MHA only) are padded to the next multiple of the axis, in the
+        # parameter shapes themselves, as the reference does
+        ms = ctx.model_size if ctx is not None else 1
+        H, K = cfg.num_heads, cfg.kv_heads
+        if ctx is not None and ctx.uneven and H and H == K and H % ms:
+            H = K = -(-H // ms) * ms
+        self.n_heads = H
+        self.n_kv = K
         period = cfg.hybrid_period
         if not period:
             period = 2 if (cfg.moe and cfg.moe.layer_pattern == "every_2") \
@@ -124,6 +197,37 @@ class LMModel(nn.Module):
                  for i, kind in enumerate(self.kinds)}
         self.blocks = nn.ModuleList(
             [Params(block, self.pdt, dev) for _ in range(self.n_super)])
+        if ctx is not None:
+            self._distribute()
+
+    def _distribute(self):
+        """Every parameter as a DTensor on the context's mesh, placed by
+        its reference leaf's spec; each rank keeps its own shard of the
+        (not yet set) tensor, with no collective."""
+        ctx = self.ctx
+        for name, prm in list(self.named_parameters()):
+            parts = name.split(".")
+            if parts[0] == "blocks":
+                path, shape = ("blocks", *parts[2:]), (self.n_super,
+                                                       *prm.shape)
+            else:
+                path, shape = tuple(parts), tuple(prm.shape)
+            spec = param_spec(path, shape, self.cfg, ctx.model_size,
+                              uneven=ctx.uneven)
+            if parts[0] == "blocks":
+                spec = block_spec(spec)
+            owner = self.get_submodule(".".join(parts[:-1]))
+            owner.register_parameter(parts[-1], nn.Parameter(
+                distribute_tensor(prm.detach(), ctx.mesh,
+                                  placements(spec, ctx.mesh),
+                                  src_data_rank=None)))
+
+    def sharded_scope(self):
+        """A context in which ops may mix this model's DTensors with plain
+        tensors, which count as replicated (nothing without a ctx).  Hold
+        it over a forward and its backward."""
+        return implicit_replication() if self.ctx is not None \
+            else contextlib.nullcontext()
 
     @property
     def device(self) -> torch.device:
@@ -171,6 +275,12 @@ class LMModel(nn.Module):
                 is_leaf=lambda s: isinstance(s, tuple))
         return shapes
 
+    def param_pspecs(self) -> Pytree:
+        """The reference's partition specs of its (stacked) parameter
+        tree."""
+        assert self.ctx is not None
+        return param_specs(self.cfg, self.param_shapes(), self.ctx)
+
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None):
         """Random weights by the reference's per-leaf rules (ones for the
@@ -196,15 +306,15 @@ class LMModel(nn.Module):
                 prm.zero_()
             elif name == "A_log":
                 u = draw(torch.rand) * 15.0 + 1.0              # U(1, 16)
-                prm.copy_(torch.log(u))
+                stacked.assign(prm, torch.log(u))
             elif name == "dt_bias":
                 lo, hi = math.log(1e-3), math.log(1e-1)
                 dt = torch.exp(draw(torch.rand) * (hi - lo) + lo)
-                prm.copy_(dt + torch.log(-torch.expm1(-dt)))
+                stacked.assign(prm, dt + torch.log(-torch.expm1(-dt)))
             else:
                 scale = 0.02 if name in ("embed", "head") \
                     else 1.0 / math.sqrt(d)
-                prm.copy_(draw(torch.randn) * scale)
+                stacked.assign(prm, draw(torch.randn) * scale)
         return self
 
     # ------------------------------------------------------------------
@@ -212,22 +322,46 @@ class LMModel(nn.Module):
     # ------------------------------------------------------------------
     def _qkv(self, p, x, positions):
         cfg = self.cfg
-        q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
-        k = torch.einsum("bsd,dke->bske", x, p["wk"].to(x.dtype))
-        v = torch.einsum("bsd,dke->bske", x, p["wv"].to(x.dtype))
+        q, k, v = (_heads_in(x, p[n]) for n in ("wq", "wk", "wv"))
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
+    def _attend(self, q, k, v, positions):
+        """``gqa_attention`` of q [B, S, H, hd] against k, v.  On DTensors
+        each rank attends its own rows and heads on its local shards: rows
+        are independent, and so are heads where q's and k's heads are both
+        split evenly (a GQA group stays on one rank); otherwise the heads
+        are gathered whole over that mesh dim first."""
+        cfg = self.cfg
+
+        def attend(q, k, v):
+            return L.gqa_attention(q, k, v, positions, positions,
+                                   swa_window=cfg.swa_window,
+                                   softcap=cfg.attn_logit_softcap,
+                                   score_dtype=self.score_dtype)
+        if not isinstance(q, DTensor):
+            return attend(q, k, v)
+        mesh = q.device_mesh
+
+        def local(i, p, pk):
+            if p == Shard(0):
+                return p
+            n = mesh.size(i)
+            if p == pk == Shard(2) and q.shape[2] % n == k.shape[2] % n == 0:
+                return p
+            return Replicate()
+        want = [local(i, p, pk) for i, (p, pk)
+                in enumerate(zip(q.placements, k.placements))]
+        o = attend(*(t.redistribute(mesh, want).to_local()
+                     for t in (q, k, v)))
+        return DTensor.from_local(o, mesh, want)
+
     def _attention_full(self, p, x, positions, want_cache: bool,
                         capacity: int = 0):
-        cfg = self.cfg
         q, k, v = self._qkv(p, x, positions)
-        o = L.gqa_attention(q, k, v, positions, positions,
-                            swa_window=cfg.swa_window,
-                            softcap=cfg.attn_logit_softcap,
-                            score_dtype=self.score_dtype)
-        out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
+        o = self._attend(q, k, v, positions)
+        out = _heads_out(o, p["wo"])
         if not want_cache:
             return out, None
         S = x.shape[1]
@@ -266,7 +400,7 @@ class LMModel(nn.Module):
             slot_pos = slots
         o = L.decode_attention(q, k_c, v_c, slot_pos, pos,
                                softcap=cfg.attn_logit_softcap)
-        return torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
+        return _heads_out(o, p["wo"])
 
     def _sublayer(self, p, x, kind, positions, mode: str, cache=None,
                   pos=None, capacity: int = 0):
@@ -302,9 +436,39 @@ class LMModel(nn.Module):
             x = x + cfg.residual_scale * y
         return x, aux, new_cache
 
+    def _lookup(self, tokens):
+        """The embedding rows of ``tokens``.  A table sharded by vocab over
+        the model axis goes through ``VocabParallelEmbed`` (DTensor's own
+        rule for a row-sharded table and data-sharded ids fails); the
+        result is sharded like ``tokens`` and replicated over the model
+        axis."""
+        emb = self.embed
+        if not isinstance(emb, DTensor):
+            return torch.nn.functional.embedding(tokens, emb)
+        mesh, axis = self.ctx.mesh, self.ctx.model_axis
+        m = mesh.mesh_dim_names.index(axis)
+        if emb.placements[m] != Shard(0):
+            return torch.nn.functional.embedding(tokens, emb)
+        if not isinstance(tokens, DTensor):
+            tokens = DTensor.from_local(tokens, mesh,
+                                        [Replicate()] * mesh.ndim)
+        # this rank's rows get the grads of this rank's ids only: partial
+        # over every mesh dim that shards the ids
+        table = emb.to_local(grad_placements=[
+            Partial() if i != m and isinstance(t, Shard) else p
+            for i, (p, t) in enumerate(zip(emb.placements,
+                                            tokens.placements))])
+        rows = table.shape[0]
+        out = VocabParallelEmbed.apply(tokens.to_local(), table,
+                                       mesh.get_local_rank(axis) * rows,
+                                       mesh.get_group(axis))
+        return DTensor.from_local(out, mesh, [
+            Replicate() if i == m else p
+            for i, p in enumerate(tokens.placements)])
+
     def _embed(self, tokens, embeds):
         cfg = self.cfg
-        x = torch.nn.functional.embedding(tokens, self.embed).to(self.cdt)
+        x = self._lookup(tokens).to(self.cdt)
         x = x * cfg.embed_scale
         if embeds is not None:
             x = torch.cat([embeds.to(self.cdt), x], dim=1)
@@ -321,7 +485,17 @@ class LMModel(nn.Module):
     # ------------------------------------------------------------------
     # full-sequence forward
     # ------------------------------------------------------------------
+    def _constrain_act(self, x):
+        """Under a ctx, the activations' batch sharded over the data axes
+        and replicated over the model axis."""
+        if self.ctx is None or x.shape[0] == 1:
+            return x
+        dp = self.ctx.dp_axes
+        return constrain(x, self.ctx, dp if len(dp) > 1 else dp[0], None,
+                         None)
+
     def _superblock(self, blk, x, aux, positions):
+        x = self._constrain_act(x)
         for i, kind in enumerate(self.kinds):
             x, a, _ = self._sublayer(blk[f"pos{i}"], x, kind, positions,
                                      mode="train")
@@ -372,6 +546,7 @@ class LMModel(nn.Module):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         per_block = []
         for blk in self.blocks:
+            x = self._constrain_act(x)
             caches = {}
             for i, kind in enumerate(self.kinds):
                 x, _, c = self._sublayer(blk[f"pos{i}"], x, kind, positions,
@@ -432,14 +607,37 @@ class LMModel(nn.Module):
                                   for k, (shape, dt) in st.items()}
         return out
 
+    def cache_pspecs(self, batch: int) -> Pytree:
+        """The reference's partition specs of the stacked cache."""
+        ctx = self.ctx
+        assert ctx is not None
+
+        def stack(spec: P) -> P:
+            return P(None, *spec)
+
+        out = {}
+        for i, (mixer, _) in enumerate(self.kinds):
+            if mixer == "attn":
+                s = stack(cache_spec("kv", ctx, batch))
+                out[f"pos{i}"] = {"k": s, "v": s}
+            else:
+                out[f"pos{i}"] = {
+                    "ssm": stack(cache_spec("ssm", ctx, batch)),
+                    "conv_x": stack(cache_spec("conv", ctx, batch)),
+                    "conv_B": stack(cache_spec("conv", ctx, batch)),
+                    "conv_C": stack(cache_spec("conv", ctx, batch)),
+                }
+        return out
+
 
 def build_model(cfg: ArchConfig, attn_score_dtype: str = "float32",
-                device="cuda",
-                remat_policy: str = "nothing_saveable") -> LMModel:
+                device="cuda", remat_policy: str = "nothing_saveable", *,
+                ctx: Optional[ShardCtx] = None) -> LMModel:
     """The model with its parameters allocated on ``device`` (CUDA unless
     the caller asks for the CPU) and not yet set: call ``init`` or
-    ``params_from_reference``."""
-    return LMModel(cfg, attn_score_dtype, device, remat_policy)
+    ``params_from_reference``.  Under ``ctx`` the parameters are DTensors
+    on its mesh (``device`` is then the mesh's device type)."""
+    return LMModel(cfg, attn_score_dtype, device, remat_policy, ctx=ctx)
 
 
 # --------------------------------------------------------------------------
@@ -483,7 +681,10 @@ def param_tree(model: LMModel) -> Pytree:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A copy of ``t`` as a numpy array (never a view of a parameter)."""
+    """A copy of ``t`` as a numpy array (never a view of a parameter); a
+    DTensor gathered whole."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         try:

@@ -23,6 +23,8 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.compat import tree_flatten_with_path, tree_map
 
@@ -59,6 +61,21 @@ def ref_shape(leaf) -> Tuple[int, ...]:
 
 def device(leaf) -> torch.device:
     return slices(leaf)[0].device
+
+
+def zeros(leaf) -> torch.Tensor:
+    """f32 zeros of the reference leaf's shape on the leaf's device: for a
+    leaf of DTensors a DTensor on their mesh, sharded as they are (a
+    stacked leaf's tensor dims shifted by its leading superblock dim)."""
+    t = slices(leaf)[0]
+    if not isinstance(t, DTensor):
+        return torch.zeros(ref_shape(leaf), dtype=torch.float32,
+                           device=t.device)
+    shift = 1 if isinstance(leaf, list) else 0
+    return dtensor_zeros(ref_shape(leaf), dtype=torch.float32,
+                         device_mesh=t.device_mesh, placements=[
+                             Shard(p.dim + shift) if isinstance(p, Shard)
+                             else p for p in t.placements])
 
 
 def map_leaves(fn: Callable, tree):
@@ -100,5 +117,25 @@ def copy_into(tree, values):
         if not isinstance(leaf, list):
             val = val[None]
         for j, t in enumerate(slices(leaf)):
-            t.copy_(val[j])
+            assign(t, val[j])
     return tree
+
+
+def like(tree, values):
+    """``values`` (the reference's layout) in the layout of ``tree``: new
+    tensors of its tensors' dtype, device and placements, such as grads
+    for a parameter tree."""
+    return copy_into(map_leaves(
+        lambda leaf: [torch.empty_like(t) for t in leaf]
+        if isinstance(leaf, list) else torch.empty_like(leaf), tree), values)
+
+
+@torch.no_grad()
+def assign(t: torch.Tensor, value: torch.Tensor):
+    """``t.copy_(value)`` for a plain tensor ``value`` of ``t``'s shape; a
+    DTensor ``t`` takes its own shard of it (no collective: every rank
+    holds the same ``value``)."""
+    if isinstance(t, DTensor):
+        value = distribute_tensor(value.to(t.dtype), t.device_mesh,
+                                  t.placements, src_data_rank=None)
+    t.copy_(value)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import stacked
+from repro_torch.models.sharding import P, map_specs
 from repro_torch.optim.schedule import _f32
 
 
@@ -47,6 +48,21 @@ class Adafactor:
 
         return {"v_row": stacked.map_leaves(vr, params),
                 "v_col": stacked.map_leaves(vc, params)}
+
+    def state_spec_like(self, param_specs):
+        """Specs of ``init``'s state from the (stacked) parameter specs:
+        a factored leaf's row state drops the last dim, its column state
+        the second to last; a 0/1-D leaf's column state is replicated."""
+        def row(spec):
+            return P(*spec[:-1]) if len(spec) >= 2 else spec
+
+        def col(spec):
+            if len(spec) >= 2:
+                return P(*(spec[:-2] + spec[-1:]))
+            return P(None)
+
+        return {"v_row": map_specs(row, param_specs),
+                "v_col": map_specs(col, param_specs)}
 
     @torch.no_grad()
     def update(self, grads, state, params, step):

@@ -15,11 +15,12 @@ class AdamW:
         self.weight_decay = weight_decay
 
     def init(self, params):
-        def zeros(leaf):
-            return torch.zeros(stacked.ref_shape(leaf), dtype=torch.float32,
-                               device=stacked.device(leaf))
-        return {"mu": stacked.map_leaves(zeros, params),
-                "nu": stacked.map_leaves(zeros, params)}
+        return {"mu": stacked.map_leaves(stacked.zeros, params),
+                "nu": stacked.map_leaves(stacked.zeros, params)}
+
+    def state_spec_like(self, param_specs):
+        """Optimizer-state specs mirror the (stacked) parameter specs."""
+        return {"mu": param_specs, "nu": param_specs}
 
     @torch.no_grad()
     def update(self, grads, state, params, step):

@@ -21,6 +21,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import stacked
@@ -28,14 +30,69 @@ from repro_torch.models import stacked
 CE_CHUNK = 512
 
 
+class VocabParallelCE(torch.autograd.Function):
+    """Cross-entropy terms ``logsumexp(logits) - logits[label]`` of logits
+    sharded by vocab (the last dim) over one process group, without
+    gathering them: the group's max, sum of exponentials and label logit
+    (non-zero on the one rank that holds the label) are all-reduces of
+    ``[B, c]`` values.  Backward: softmax minus the label's one-hot, on
+    this rank's columns (the output's grad is the same on every rank of
+    the group, so no collective).  On plain (local) tensors: ``logits``
+    this rank's f32 ``[B, c, V / n]`` columns, ``labels`` ``[B, c]``,
+    ``start`` its first column's id."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start: int, group):
+        top = logits.amax(-1)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        total = torch.exp(logits - top[..., None]).sum(-1)
+        dist.all_reduce(total, group=group)
+        lse = top + torch.log(total)
+        local = labels.long() - start
+        hit = (local >= 0) & (local < logits.shape[-1])
+        local = torch.where(hit, local, 0)
+        picked = torch.where(
+            hit, torch.gather(logits, -1, local[..., None])[..., 0], 0.0)
+        dist.all_reduce(picked, group=group)
+        ctx.save_for_backward(logits, lse, local, hit)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, local, hit = ctx.saved_tensors
+        d = torch.exp(logits - lse[..., None])
+        d.scatter_add_(-1, local[..., None], -hit[..., None].to(d.dtype))
+        return d * grad[..., None], None, None, None
+
+
+def _nll(logits, labels):
+    """``logsumexp(logits) - logits[label]``, ``[B, c]``.  The label's
+    logit is gathered (the reference's one-hot product picks the same
+    value exactly).  A DTensor's logits sharded by vocab over a mesh dim
+    (a vocab-sharded head) go through ``VocabParallelCE`` and stay
+    sharded; the result is sharded like the logits' other dims."""
+    dims = [i for i, p in enumerate(getattr(logits, "placements", ()))
+            if isinstance(p, Shard) and p.dim == logits.ndim - 1]
+    if not dims:
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    (m,) = dims
+    mesh = logits.device_mesh
+    want = [Replicate() if i == m else p
+            for i, p in enumerate(logits.placements)]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim)
+    cols = logits.to_local()
+    out = VocabParallelCE.apply(
+        cols, labels.redistribute(mesh, want).to_local(),
+        mesh.get_local_rank(m) * cols.shape[-1], mesh.get_group(m))
+    return DTensor.from_local(out, mesh, want)
+
+
 def _ce_chunk(x, head, labels, mask, logit_scale):
-    """x: [B, c, d]; head: [d, V]; labels/mask: [B, c] -> (sum_nll, count).
-    The label's logit is gathered (the reference's one-hot product picks
-    the same value exactly)."""
+    """x: [B, c, d]; head: [d, V]; labels/mask: [B, c] -> (sum_nll, count)."""
     logits = (x @ head.to(x.dtype)).float() * logit_scale
-    lse = torch.logsumexp(logits, dim=-1)                     # [B, c]
-    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = (lse - picked) * mask
+    nll = _nll(logits, labels) * mask
     return torch.sum(nll), torch.sum(mask)
 
 
@@ -88,12 +145,19 @@ def make_loss_fn(model, aux_weight: float = 0.01):
     return loss_fn
 
 
+def _whole(t):
+    """A metric as a plain tensor: a DTensor (partial sums over the data
+    axes) reduced and gathered."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """A batch of numpy arrays (the data pipeline's) or tensors, as
-    tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(
-        v, torch.Tensor) else v).to(device, non_blocking=True)
-        for k, v in batch.items()}
+    tensors on ``device``; a DTensor (a batch sharded over a mesh) stays
+    as it is."""
+    return {k: v if isinstance(v, DTensor) else torch.as_tensor(
+        np.asarray(v) if not isinstance(v, torch.Tensor) else v).to(
+            device, non_blocking=True) for k, v in batch.items()}
 
 
 def grad_tree(params, flat_grads) -> Dict:
@@ -122,12 +186,17 @@ def make_train_step(model, optimizer, microbatches: int = 1,
     mark = on_phase or (lambda name: None)
 
     def grads_of(flat, batch):
-        mark("forward")
-        loss, metrics = loss_fn(batch)
-        mark("backward")
-        grads = torch.autograd.grad(loss, flat)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            grads
+        with model.sharded_scope():
+            mark("forward")
+            loss, metrics = loss_fn(batch)
+            mark("backward")
+            grads = torch.autograd.grad(loss, flat)
+        # DTensor grads come back partial over the data axes: placing them
+        # as their parameters is the data-parallel all-reduce
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if isinstance(g, DTensor) else g for g, p in zip(grads, flat)]
+        return _whole(loss.detach()), {k: _whole(v.detach())
+                                       for k, v in metrics.items()}, grads
 
     def train_step(params, opt_state, batch, step):
         batch = to_device(batch, model.device)
@@ -155,8 +224,8 @@ def make_train_step(model, optimizer, microbatches: int = 1,
                        "aux": torch.zeros((), dtype=torch.float32,
                                           device=model.device)}
         mark("update")
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in gflat))
+        gnorm = _whole(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                      for g in gflat)))
         optimizer.update(grad_tree(params, gflat), opt_state, params, step)
         mark("end")
         metrics = dict(metrics, loss=loss, grad_norm=gnorm,

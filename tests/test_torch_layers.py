@@ -155,3 +155,99 @@ def test_mlp(rng, mlp_type):
         exact = torch.nn.functional.gelu(h) @ _t(p["w2"])
         with pytest.raises(AssertionError):
             close(exact, want)
+
+
+# --------------------------------------------------------------------------
+# the card's score products and autograd's graph
+# --------------------------------------------------------------------------
+def _graph_names(t):
+    """Names of every node of ``t``'s autograd graph."""
+    seen, stack, names = set(), [t.grad_fn], []
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.append(type(fn).__name__)
+        stack += [f for f, _ in fn.next_functions]
+    return names
+
+
+@pytest.mark.parametrize("q_block,softcap", [(64, 0.0), (8, 2.0)],
+                         ids=["one-block", "blocked-softcap"])
+def test_gqa_attention_under_grad_builds_no_copy_slices(rng, q_block,
+                                                        softcap):
+    """Scaling and masking the scores in place under grad makes autograd
+    record a ``CopySlices`` node, whose backward copies the scores' grad;
+    the out-of-place forms record none."""
+    q, k, v = (_t(a).requires_grad_() for a in _qkv(rng))
+    pos = _t(np.arange(32, dtype=np.int32))
+    out = L.gqa_attention(q, k, v, pos, pos, softcap=softcap,
+                          q_block=q_block, swa_window=5)
+    names = _graph_names(out)
+    assert "SoftmaxBackward0" in names, names     # the walk saw the scores
+    assert "CopySlices" not in names, names
+
+
+def test_scores_f32_on_meta_tensors():
+    """The tensor-core score product's wiring, where the CPU can run it:
+    bf16 and f16 operands give f32 scores [N, M, T], and the backward gives
+    grads of the operands' shapes and dtypes."""
+    for dt in (torch.bfloat16, torch.float16):
+        a = torch.empty(6, 10, 16, device="meta", dtype=dt,
+                        requires_grad=True)
+        b = torch.empty(6, 7, 16, device="meta", dtype=dt,
+                        requires_grad=True)
+        s = L.ScoresF32.apply(a, b)
+        assert s.shape == (6, 10, 7) and s.dtype == torch.float32
+        da, db = torch.autograd.grad(s, (a, b), torch.empty_like(s))
+        assert da.shape == a.shape and da.dtype == dt
+        assert db.shape == b.shape and db.dtype == dt
+
+
+def _emulated_bmm(bmm):
+    """``torch.bmm`` with ``out_dtype`` on the CPU, as the card computes
+    it: the f32 product of the operands, rounded to ``out_dtype``."""
+    def fn(a, b, out_dtype=None, **kw):
+        if out_dtype is None:
+            return bmm(a, b, **kw)
+        return bmm(a.float(), b.float()).to(out_dtype)
+    return fn
+
+
+def test_tensor_core_paths_equal_the_f32_paths(rng, monkeypatch):
+    """The card's layouts on the CPU: ``aten::bmm.dtype`` emulated (f32
+    products of the bf16 operands), and the tensor-core dispatch taken for
+    CPU tensors.  ``_attend_block``'s forward and grads and
+    ``decode_attention`` (the block-diagonal query against the cache read
+    in place) equal the f32 paths on the same bf16 inputs: the same exact
+    products, summed in another order in f32, so their bf16 results
+    (output and grads) agree within one bf16 rounding, 2**-8 of the
+    largest value."""
+    q, k, v = (_t(a).to(torch.bfloat16) for a in _qkv(rng))
+    pos = _t(np.arange(32, dtype=np.int32))
+
+    def run():
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = L.gqa_attention(*ins, pos, pos, softcap=2.0, q_block=8)
+        grads = torch.autograd.grad(out.float().square().sum(), ins)
+        return [out, *grads]
+    want = run()
+    monkeypatch.setattr(torch, "bmm", _emulated_bmm(torch.bmm))
+    monkeypatch.setattr(L, "_tensor_core_scores", lambda a, b: True)
+    got = run()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        close(g, w.detach().float(), 2.0 ** -8)
+
+    B, C, H, K, hd = 3, 24, 8, 2, 16
+    qd = _t(rng.standard_normal((B, 1, H, hd))).to(torch.bfloat16)
+    kc, vc = (_t(rng.standard_normal((B, C, K, hd))).to(torch.bfloat16)
+              for _ in range(2))
+    slot_pos = torch.arange(C)
+    cur = torch.tensor([5, 17, 23])
+    got = L.decode_attention(qd, kc, vc, slot_pos, cur, softcap=3.0)
+    monkeypatch.undo()
+    want = L.decode_attention(qd, kc, vc, slot_pos, cur, softcap=3.0)
+    assert got.dtype == torch.bfloat16
+    close(got, want.float(), 2.0 ** -8)

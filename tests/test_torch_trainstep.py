@@ -216,3 +216,34 @@ def test_train_step_metrics_equal_reference():
     moved = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
         stacked.leaves(stacked.stack(tree)), stacked.leaves(before)))
     assert moved > 0.0
+
+
+def test_ten_steps_follow_reference_through_wsd():
+    """Ten train steps of the port and of the reference on minicpm-2b's
+    smoke config from the same weights, batches (the data pipeline, seed
+    0) and WSD schedule (lr 3e-4 over 10 steps, as the training CLI's
+    default lr and phase 10's step count): loss and grad norm agree at
+    every step within GRAD_TOL relative (step 9 is the first step of the
+    schedule's decay)."""
+    from repro.data import make_pipeline
+    ref, params, port = _pair("minicpm-2b")
+    cfg, steps = port.cfg, 10
+    ro = ref_make_optimizer(cfg.optimizer,
+                            ref_make_schedule(cfg.lr_schedule, 3e-4, steps))
+    po = make_optimizer(cfg.optimizer,
+                        make_schedule(cfg.lr_schedule, 3e-4, steps))
+    r_step = jax.jit(ref_ts.make_train_step(ref, ro))
+    p_step = make_train_step(port, po)
+    r_state, tree = ro.init(params), param_tree(port)
+    p_state = po.init(tree)
+    pipeline = make_pipeline(cfg, 64, 4, seed=0)
+    for i in range(steps):
+        batch = pipeline.batch(i)
+        params, r_state, r_m = r_step(params, r_state,
+                                      jax.tree.map(jnp.asarray, batch),
+                                      jnp.asarray(i, jnp.int32))
+        tree, p_state, p_m = p_step(tree, p_state, batch, i)
+        for key in ("loss", "grad_norm", "lr"):
+            want = float(r_m[key])
+            assert abs(float(p_m[key]) - want) <= \
+                GRAD_TOL * max(abs(want), 1e-6), (i, key)

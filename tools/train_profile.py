@@ -10,8 +10,10 @@ its ``on_phase`` hook records: the forward and loss, the backward (with
 the superblocks' recompute), and the grad norm with the optimiser's
 update.  Then it runs one more step under ``torch.profiler``: wall time (host clock, ending in a
 synchronise), the device time of its kernels and their share of the wall
-(the device's busy share), launches, and the kernels with the most
-device time.  Run from the root of a checkout:
+(the device's busy share), launches, the kernels with the most device
+time, and the host-side ops and autograd nodes whose kernels took the
+most (a ``CopySlices`` node is an in-place op recorded under grad).  Run
+from the root of a checkout:
 ``python3 tools/train_profile.py``.  Needs one card; without one it
 exits with code 2.
 """
@@ -38,6 +40,7 @@ def main() -> int:
         print("train_profile: no CUDA device", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
+    from lm_profile import print_ops
     from repro_torch.configs import get_config
     from repro_torch.data import make_pipeline
     from repro_torch.models.model import build_model, param_tree
@@ -100,6 +103,7 @@ def main() -> int:
         t = e.self_device_time_total / 1e3
         print(f"  {t:9.2f} ms {t / 1e3 / wall:6.1%} x{e.count:<6d} "
               f"{e.key[:100]}")
+    print_ops(torch, prof, wall, TOP)
     return 0
 
 
