@@ -125,7 +125,24 @@ each printing its results:
    (minicpm-2b's widths in 2 layers, f32) against the plain step from the
    same weights and batch, within phase 10's tolerances, both steps'
    times; ``quantize_int8`` on the card equal to the CPU bit for bit, and
-   the int8 cross-pod sync over 20 steps within 0.05.
+   the int8 cross-pod sync over 20 steps within 0.05;
+12. the dry-run slice (``repro_torch.launch.dryrun``,
+   ``repro_torch.roofline.{hlo_analysis,reanalyze}``): (a) the dry-run CLI
+   on llama3-8b ``train_4k`` over 256 and 512 placeholder ranks (records
+   with every key of the JAX package's, per-device memory against the
+   card's 80 GB, FLOPs against ``model_flops / n_devices``, wire bytes by
+   collective, ``reanalyze`` reproducing them); (b) the estimator against
+   the card: phase 10 (a)'s minicpm-2b step captured on a (1, 1) mesh,
+   its FLOPs equal to ``FlopCounterMode`` on the same step run for real,
+   its predicted peak memory beside the real one, its roofline step time
+   beside the measured one; (c) the four remat policies at minicpm-2b's
+   widths in 2 layers: step time, peak memory, loss and grads equal
+   across them; (d) sharded serving on a one-card NCCL mesh (llama3-8b's
+   and mamba2-1.3b's widths in 2 layers, f32; llama3-8b also in bf16):
+   prefill and 16 decode steps against the plain model, tokens equal
+   (in bf16 where the top-two margin allows), logits within the compute
+   dtype's bound, decode ms per step of both.  The CLI runs and the capture run as
+   subprocesses beside (b)-(d).
 
 Any failed check raises, so the script exits non-zero.  The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -2821,6 +2838,371 @@ def phase_dist(torch, np, smi: str):
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
+# (a) the dry-run CLI's cells, run as subprocesses beside (b)-(d)
+DRYRUN_CELLS = (("llama3-8b", "train_4k", "single"),
+                ("llama3-8b", "train_4k", "multi"))
+DRYRUN_TIMEOUT_S = 600
+# the placeholder tensors' device in (a) and (b) (a CPU rehearsal sets cpu)
+DRYRUN_DEVICE = "cuda"
+CARD_BYTES = 80e9
+# (b) phase 10 (a)'s step (TRAIN_ARGV: minicpm-2b, 4 x 2048, f32 master,
+# bf16 compute, remat) captured on a (1, 1) mesh and run for real; the
+# captured FLOPs within FLOPS_TOL of FlopCounterMode on the real step, the
+# predicted peak (the capture's arguments plus MemTracker's temporaries)
+# within PEAK_TOL of torch.cuda.max_memory_allocated (PERF.md, PR 22)
+FLOPS_TOL, PEAK_TOL = 1e-3, 0.25
+# (c) minicpm-2b's widths in REMAT_LAYERS layers, REMAT_B x REMAT_S
+REMAT_LAYERS, REMAT_B, REMAT_S = 2, 4, 2048
+REMAT_RUNS = ("nothing_saveable", "everything_saveable", "dots_saveable",
+              "dots_with_no_batch_dims_saveable")
+REMAT_TOL = 1e-6
+# (d) SERVE_B prompts of SERVE_S tokens, SERVE_N decode steps, the
+# sharded model against the plain one: in f32 compute the logits within
+# SERVE_TOL_F32 of the largest and the greedy tokens equal; llama3-8b also
+# in bf16 compute (the tensor cores' score products, C17), the logits
+# within SERVE_TOL_BF16 (a few bf16 ulps, u = 2**-8: the two paths round
+# the attention's probabilities apart) and the tokens equal wherever the
+# plain step's top-two margin exceeds twice that bound (random weights
+# leave near-ties that one ulp flips)
+SERVE_B, SERVE_S, SERVE_N = 2, 512, 16
+SERVE_TOL_F32, SERVE_TOL_BF16 = 1e-5, 2 ** -6
+
+CAPTURE_CODE = """
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+B, S = int(sys.argv[1]), int(sys.argv[2])
+rec = dryrun.run_cell("minicpm-2b", ShapeSpec(f"train_{S}", S, B, "train"),
+                      "single", dp=1, tp=1, device=sys.argv[3])
+print(json.dumps(rec))
+"""
+
+
+def _dryrun_procs():
+    """Start the dry-run CLI on DRYRUN_CELLS and the capture of (b), each
+    a subprocess with its own time limit; returns {name: (Popen, t0)}."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        path = os.path.join(ROOT, "results", "torch", "dryrun",
+                            f"{arch}__{shape}__{mesh}.json")
+        if os.path.exists(path):
+            os.remove(path)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--device",
+               DRYRUN_DEVICE]
+        procs[mesh] = (subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       time.perf_counter(), " ".join(cmd[1:]))
+    B, S = _argv_int(TRAIN_ARGV, "--batch"), _argv_int(TRAIN_ARGV, "--seq")
+    procs["capture"] = (subprocess.Popen(
+        [sys.executable, "-c", CAPTURE_CODE, str(B), str(S),
+         DRYRUN_DEVICE], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        time.perf_counter(), "dryrun.run_cell(minicpm-2b, (1, 1))")
+    return procs
+
+
+def _finish(proc, t0, what: str) -> str:
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"{what} exits 0 ({err[-2000:]})")
+    print(f"(a/b) {what}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def remat_policies_on_card(torch, dev, smi: str):
+    """(c) one forward and backward under each remat policy from the same
+    weights and batch: step ms and peak memory each, loss and grads
+    against ``nothing_saveable``'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainstep import make_loss_fn
+    cfg = dataclasses.replace(get_config("minicpm-2b"),
+                              num_layers=REMAT_LAYERS)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in make_pipeline(
+        cfg, REMAT_S, REMAT_B, seed=TRAIN_SEED).batch(0).items()}
+    base = None
+    for policy in REMAT_RUNS:
+        model = build_model(cfg, device=dev, remat_policy=policy).init(
+            torch.Generator(dev).manual_seed(TRAIN_SEED))
+        prms = list(model.parameters())
+        loss_fn = make_loss_fn(model)
+        ms = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss, _ = loss_fn(batch)
+            grads = torch.autograd.grad(loss, prms)
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        peak = torch.cuda.max_memory_allocated()
+        loss = float(loss.detach())
+        if base is None:
+            base = (loss, grads)
+            rel, g_err, same = 0.0, 0.0, True
+        else:
+            rel = abs(loss - base[0]) / abs(base[0])
+            g_err = max(float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(grads, base[1]))
+            same = loss == base[0] and all(torch.equal(a, b) for a, b in
+                                           zip(grads, base[1]))
+        print(f"(c) {policy} [{smi}]: step {ms[-1]:.1f} ms (forward and "
+              f"backward, the second of two), peak {peak / 1e9:.2f} GB; "
+              f"loss {loss:.6f} (rel {rel:.1e}), grads {g_err:.1e} of each "
+              f"leaf's largest against nothing_saveable "
+              f"({'bit for bit' if same else 'not bit for bit'}, limit "
+              f"{REMAT_TOL})")
+        check(rel <= REMAT_TOL and g_err <= REMAT_TOL,
+              f"(c) {policy}: loss and grads equal nothing_saveable's")
+        del model, grads, prms
+        torch.cuda.empty_cache()
+
+
+def serving_sharded_vs_plain(torch, cfg, ctx, dev, smi: str):
+    """(d) prefill SERVE_B x SERVE_S and SERVE_N decode steps of the plain
+    model and of the sharded one from the same weights, each fed the
+    plain model's tokens: logits within the compute dtype's bound of the
+    plain one's largest, the same greedy tokens (in bf16 where the top-two
+    margin allows); decode ms per step of both."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models import stacked
+    from repro_torch.models.model import build_model, param_tree
+    from repro_torch.models.sharding import placements
+    f32 = cfg.compute_dtype == "float32"
+    tol = SERVE_TOL_F32 if f32 else SERVE_TOL_BF16
+    plain = build_model(cfg, device=dev).init(
+        torch.Generator(dev).manual_seed(LM_SEED))
+    sharded = build_model(cfg, device=dev, ctx=ctx)
+    stacked.copy_into(param_tree(sharded), stacked.stack(param_tree(plain)))
+    mesh = ctx.mesh
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev)
+
+    def rows(t):
+        return distribute_tensor(t, mesh, [Shard(0), Replicate()])
+    errs, tokens = [], [0, 0]                # compared, equal
+
+    def compare(got, want):
+        top = float(want.abs().max())
+        errs.append(float((got - want).abs().max()) / top)
+        two = torch.topk(want, 2, dim=-1).values
+        clear = (two[:, 0] - two[:, 1]) > 2 * tol * top
+        if f32:
+            clear = torch.ones_like(clear)
+        same = torch.argmax(got, -1) == torch.argmax(want, -1)
+        tokens[0] += int(clear.sum())
+        tokens[1] += int((same & clear).sum())
+    cap = SERVE_S + SERVE_N
+    c1, l1 = plain.prefill(prompt, capacity=cap)
+    c2, l2 = sharded.prefill(rows(prompt), capacity=cap)
+    specs = sharded.cache_pspecs(SERVE_B)
+    check(all(tuple(t.placements) == placements(specs[k][n], mesh)
+              for k, layer in c2.items() for n, t in layer.items()),
+          f"(d) {cfg.name}: the prefill leaves its cache in cache_pspecs")
+    compare(l2.full_tensor(), l1)
+    tok = torch.argmax(l1, -1)[:, None]
+    times = {"plain": [], "sharded": []}
+    for i in range(SERVE_N):
+        outs = {}
+        for name, model, cache, t in (("plain", plain, c1, tok),
+                                      ("sharded", sharded, c2, rows(tok))):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, lg = model.decode_step(cache, t, SERVE_S + i)
+            ev[1].record()
+            ev[1].synchronize()
+            times[name].append(ev[0].elapsed_time(ev[1]))
+            outs[name] = lg.full_tensor() if name == "sharded" else lg
+        compare(outs["sharded"], outs["plain"])
+        tok = torch.argmax(outs["plain"], -1)[:, None]
+    med = {k: statistics.median(v[1:]) for k, v in times.items()}
+    total = SERVE_B * (SERVE_N + 1)
+    print(f"(d) {cfg.name} widths, {cfg.num_layers} layers, "
+          f"{cfg.compute_dtype} [{smi}]: prefill {SERVE_B} x {SERVE_S} and "
+          f"{SERVE_N} decode steps, sharded against plain: logits "
+          f"{max(errs):.2e} of the largest (limit {tol:.2e}); greedy tokens "
+          f"equal at {tokens[1]} of {tokens[0]} compared positions "
+          f"({total - tokens[0]} within twice the bound of a tie, not "
+          f"compared); decode median {med['plain']:.3f} ms plain, "
+          f"{med['sharded']:.3f} ms sharded (CUDA events, steps "
+          f"2-{SERVE_N})")
+    check(max(errs) <= tol, f"(d) {cfg.name}: logits within bound")
+    check(tokens[1] == tokens[0] and (not f32 or tokens[0] == total),
+          f"(d) {cfg.name}: greedy tokens equal")
+    del plain, sharded, c1, c2
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(torch, np, smi: str):
+    """Phase 12: the dry-run slice, the remat policies and sharded serving
+    on the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import flash_attn, gear, md5, sliding_md5
+    from repro_torch.launch.mesh import make_shard_ctx
+    from repro_torch.models.model import build_model, param_tree
+    from repro_torch.optim import make_optimizer, make_schedule
+    from repro_torch.roofline import hlo_analysis
+    from repro_torch.roofline.analysis import (HW, load_records,
+                                               model_flops,
+                                               train_step_flops)
+    from repro_torch.train.trainstep import make_train_step
+    print("== phase 12: dry-run slice (the dry-run CLI over 256 and 512 "
+          "placeholder ranks, the estimator against the card, remat "
+          "policies, sharded serving)")
+    t_phase = time.perf_counter()
+    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+                "gear": gear.LAUNCHES, "flash_attn": flash_attn.LAUNCHES,
+                "flash_tf32_split": flash_attn.SPLIT_LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    dev = torch.device("cuda", 0)
+    hw = HW()
+    procs = _dryrun_procs()
+
+    # (b) phase 10 (a)'s step for real: FLOPs, peak memory, time
+    cfg = get_config("minicpm-2b")
+    B, S = _argv_int(TRAIN_ARGV, "--batch"), _argv_int(TRAIN_ARGV, "--seq")
+    model = build_model(cfg, device=dev).init(
+        torch.Generator(dev).manual_seed(TRAIN_SEED))
+    opt = make_optimizer(cfg.optimizer,
+                         make_schedule(cfg.lr_schedule, TRAIN_LR, 100))
+    params = param_tree(model)
+    state = opt.init(params)
+    batch = make_pipeline(cfg, S, B, seed=TRAIN_SEED).batch(0)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with hlo_analysis.flop_counter() as fc:
+        step(params, state, batch, 1)
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated()
+    real_flops = fc.get_total_flops()
+    ms = []
+    for i in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step(params, state, batch, 2 + i)
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    step_ms = min(ms)
+    del model, params, state, step, opt
+    torch.cuda.empty_cache()
+
+    # (c) the remat policies
+    remat_policies_on_card(torch, dev, smi)
+
+    # (d) sharded serving on a one-card NCCL mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            ctx = make_shard_ctx(init_device_mesh(
+                "cuda", (1, 1), mesh_dim_names=("data", "model")))
+            for arch, cdt in (("llama3-8b", "float32"),
+                              ("mamba2-1.3b", "float32"),
+                              ("llama3-8b", "bfloat16")):
+                serving_sharded_vs_plain(torch, dataclasses.replace(
+                    get_config(arch), num_layers=2, compute_dtype=cdt),
+                    ctx, dev, smi)
+        finally:
+            dist.destroy_process_group()
+
+    # (b), captured: the same step on a (1, 1) mesh of one fake rank
+    rec = json.loads(_finish(*procs["capture"]).strip().splitlines()[-1])
+    pred_peak = rec["memory"]["argument_size_in_bytes"] \
+        + rec["memory"]["temp_size_in_bytes"]
+    flops_err = abs(rec["flops_scaled"] - real_flops) / real_flops
+    peak_err = (pred_peak - real_peak) / real_peak
+    terms = {"compute": rec["flops_scaled"] / hw.peak_flops,
+             "memory": rec["bytes_scaled"] / hw.hbm_bw,
+             "collective": rec["collectives"]["total_wire_bytes"]
+             / hw.link_bw}
+    bound = max(terms, key=terms.get)
+    print(f"(b) {cfg.name} {B} x {S}, f32 master, bf16 compute, remat "
+          f"[{smi}]: captured flops_scaled {rec['flops_scaled']:.6e}, "
+          f"FlopCounterMode on the real step {real_flops:.6e} (apart "
+          f"{flops_err:.2e}, limit {FLOPS_TOL}), "
+          f"roofline.analysis.train_step_flops "
+          f"{train_step_flops(cfg, B, S):.6e}")
+    print(f"(b) predicted peak {pred_peak / 1e9:.3f} GB (arguments "
+          f"{rec['memory']['argument_size_in_bytes'] / 1e9:.3f} + MemTracker "
+          f"temporaries {rec['memory']['temp_size_in_bytes'] / 1e9:.3f}), "
+          f"torch.cuda.max_memory_allocated of the real step "
+          f"{real_peak / 1e9:.3f} GB: error {peak_err:+.1%} (limit "
+          f"{PEAK_TOL:.0%})")
+    print(f"(b) roofline step {max(terms.values()) * 1e3:.1f} ms ({bound}-"
+          f"bound: compute {terms['compute'] * 1e3:.1f}, memory "
+          f"{terms['memory'] * 1e3:.1f}, collective "
+          f"{terms['collective'] * 1e3:.1f} ms), measured {step_ms:.1f} ms "
+          f"(CUDA events, the faster of two steps), so "
+          f"{max(terms.values()) * 1e3 / step_ms:.1%} of it")
+    check(flops_err <= FLOPS_TOL, "(b) captured FLOPs equal the real step's")
+    check(abs(peak_err) <= PEAK_TOL, "(b) predicted peak within its bound")
+
+    # (a) the dry-run CLI's records
+    for mesh in ("single", "multi"):
+        _finish(*procs[mesh])
+    base = os.path.join(ROOT, "results", "torch")
+    recs = load_records(os.path.join(base, "dryrun"))
+    keys = {"arch", "shape", "mesh", "zero1", "remat", "kind", "n_devices",
+            "seq_len", "global_batch", "lower_s", "compile_s", "memory",
+            "cost", "collectives", "flops_scaled", "bytes_scaled",
+            "bytes_upper", "top_collectives", "top_bytes", "params",
+            "active_params", "hlo_bytes"}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        r = recs[f"{arch}__{shape}__{mesh}"]
+        check(keys <= set(r), f"(a) {mesh}: every key of the reference's "
+                              f"record ({sorted(keys - set(r))} missing)")
+        m = r["memory"]
+        per_dev = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+        useful = model_flops(arch, shape) / r["n_devices"] / r["flops_scaled"]
+        wire = ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in
+                         sorted(r["collectives"]["wire_bytes"].items()))
+        print(f"(a) {arch} {shape} {mesh}, {r['n_devices']} ranks [{smi}]: "
+              f"per-device memory {per_dev / 1e9:.2f} GB (arguments "
+              f"{m['argument_size_in_bytes'] / 1e9:.2f} + temporaries "
+              f"{m['temp_size_in_bytes'] / 1e9:.2f}) against the card's "
+              f"{CARD_BYTES / 1e9:.0f} GB; flops_scaled "
+              f"{r['flops_scaled']:.4e} against model_flops / n_devices "
+              f"{model_flops(arch, shape) / r['n_devices']:.4e} (useful "
+              f"{useful:.3f}); wire bytes per device: {wire}; captured in "
+              f"{r['compile_s']} s")
+        check(math.isfinite(per_dev) and per_dev > 0,
+              f"(a) {mesh}: per-device memory")
+    before = {k: json.dumps(v, sort_keys=True) for k, v in recs.items()}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.roofline.reanalyze", base],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, check=True,
+        timeout=DRYRUN_TIMEOUT_S).stdout
+    after = load_records(os.path.join(base, "dryrun"))
+    check(all(json.dumps(after[k], sort_keys=True) == v
+              for k, v in before.items()),
+          "(a) reanalyze reproduces the records' fields exactly")
+    print(f"(a) {out.strip()}: every field reproduced")
+    launches = {k: c.value for k, c in counters.items()}
+    check(not any(launches.values()),
+          "phase 12 launches none of the ported kernels")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2853,6 +3235,7 @@ def main() -> int:
     phase_lm(torch, np, smi)
     phase_train(torch, np, smi)
     phase_dist(torch, np, smi)
+    phase_dryrun(torch, np, smi)
     kernels = []
     for name, counter, source, replaces in [
             ("md5_direct", "md5", "src/repro_torch/kernels/csrc/md5.cu",

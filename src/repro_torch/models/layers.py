@@ -19,7 +19,10 @@ them makes autograd copy them); serving scales and masks in place.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -29,6 +32,25 @@ DEFAULT_Q_BLOCK = 2048
 
 # masked scores, as the JAX package writes them
 NEG_INF = -1e30
+
+# how many query-block checkpoints (``gqa_attention``) are running their
+# forward: a selective remat policy around a superblock saves nothing
+# inside one, as a ``jax.checkpoint(nothing_saveable)`` nested in an outer
+# policy keeps none of its own residuals
+_inner_remat = [0]
+
+
+@contextlib.contextmanager
+def inner_remat():
+    _inner_remat[0] += 1
+    try:
+        yield
+    finally:
+        _inner_remat[0] -= 1
+
+
+def in_inner_remat() -> bool:
+    return _inner_remat[0] > 0
 
 
 # --------------------------------------------------------------------------
@@ -171,20 +193,31 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sl = slice(i * q_block, (i + 1) * q_block)
         args = (qh[:, :, :, sl], kh, vh, q_positions[sl], k_positions,
                 swa_window, softcap, score_dtype)
-        ob = checkpoint(_attend_block, *args, use_reentrant=False) \
-            if remat else _attend_block(*args)
+        if remat:
+            with inner_remat():
+                ob = checkpoint(_attend_block, *args, use_reentrant=False)
+        else:
+            ob = _attend_block(*args)
         out.append(ob.permute(0, 3, 1, 2, 4))              # [B,qb,K,G,hd]
     return torch.cat(out, dim=1).reshape(B, S, H, hd)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, slot_positions: torch.Tensor,
-                     cur_pos, softcap: float = 0.0) -> torch.Tensor:
+                     cur_pos, softcap: float = 0.0,
+                     group=None) -> torch.Tensor:
     """Single-token attention against a (possibly ring-buffer) KV cache.
 
     q: [B, 1, H, hd]; caches: [B, C, K, hd]; slot_positions: [C] or
     [B, C] absolute position held by each cache slot (-1 or > cur_pos =>
     masked out); cur_pos: scalar or [B] (ragged continuous batching).
+
+    With ``group`` (a process group), the caches are this rank's share of
+    the slots (the flash-decoding layout) and q is whole on every rank:
+    the group's max and sum of exponentials are all-reduced before the
+    probabilities are rounded to q's dtype, and each rank's P.V (f32
+    results) is summed over the group, then rounded as the one product
+    would be.
     """
     B, _, H, hd = q.shape
     C, K = k_cache.shape[1:3]
@@ -213,16 +246,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     cp = torch.as_tensor(cur_pos, device=q.device).reshape(-1, 1)
     valid = (sp >= 0) & (sp <= cp)                         # [B or 1, C]
     scores = scores.masked_fill_(~valid[:, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if group is None:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    else:
+        top = scores.amax(-1, keepdim=True)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(scores - top)
+        total = e.sum(-1, keepdim=True)
+        dist.all_reduce(total, group=group)
+        probs = (e / total).to(q.dtype)
+    ct = torch.promote_types(probs.dtype, v_cache.dtype)
     if tensor_cores:
         # every head's probabilities against the whole cache row, in
         # place; each head keeps its own block of the [K * G, K * hd] result
+        kw = {} if group is None else {"out_dtype": torch.float32}
         pv = torch.bmm(probs.reshape(B, K * G, C),
-                       v_cache.reshape(B, C, K * hd))
+                       v_cache.reshape(B, C, K * hd), **kw)
         out = torch.diagonal(pv.view(B, K, G, K, hd), dim1=1, dim2=3)
-        return out.permute(0, 3, 1, 2).reshape(B, 1, H, hd)
-    ct = torch.promote_types(probs.dtype, v_cache.dtype)
-    out = torch.einsum("bkgs,bskh->bkgh", probs.to(ct), v_cache.to(ct))
+        out = out.permute(0, 3, 1, 2)
+    elif group is None:
+        out = torch.einsum("bkgs,bskh->bkgh", probs.to(ct), v_cache.to(ct))
+    else:
+        out = torch.einsum("bkgs,bskh->bkgh", probs.float(), v_cache.float())
+    if group is not None:
+        out = out.contiguous()
+        dist.all_reduce(out, group=group)
+        out = out.to(ct)
     return out.reshape(B, 1, H, hd)
 
 

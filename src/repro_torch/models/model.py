@@ -29,8 +29,20 @@ Remat: under ``remat_policy="nothing_saveable"`` (the reference's
 baseline) each superblock of the training forward runs under
 ``torch.utils.checkpoint``, so backward keeps only the superblocks'
 inputs and recomputes the rest; ``"everything_saveable"`` keeps every
-activation.  Serving (``prefill``, ``decode_step``) runs under
-``torch.inference_mode`` and saves nothing either way.
+activation.  ``"dots_saveable"`` and ``"dots_with_no_batch_dims_saveable"``
+(and JAX's aliases ``checkpoint_dots``, ``checkpoint_dots_with_no_batch_dims``)
+checkpoint each superblock selectively
+(``create_selective_checkpoint_contexts``): the results of ``mm``,
+``addmm``, ``bmm`` and ``baddbmm``, or only of ``mm`` and ``addmm`` (the
+projections; the attention and MoE products have batch dims), are saved
+and the rest recomputed.  Inside a query-block checkpoint of attention
+nothing is saved, as in the reference, whose inner ``jax.checkpoint`` is
+``nothing_saveable``.  Serving (``prefill``, ``decode_step``) runs under
+``serving_mode()`` (``torch.inference_mode``; ``torch.no_grad`` under a
+ctx) and saves nothing either way.  Under a ctx the serving cache is a
+set of DTensors placed by ``cache_pspecs``: the KV slots are sharded over
+the model axis, and decode attention combines each rank's slots over the
+model group (``_decode_sharded``).
 """
 from __future__ import annotations
 
@@ -45,7 +57,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
@@ -53,19 +66,59 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import stacked
-from repro_torch.models.sharding import (P, ShardCtx, block_spec, cache_spec,
-                                         constrain, param_spec, param_specs,
-                                         placements)
+from repro_torch.models.sharding import (P, Reduced, ShardCtx, block_spec,
+                                         cache_spec, constrain, local_shard,
+                                         param_spec, param_specs, placements)
 
 Pytree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
+_aten = torch.ops.aten
 # remat policies of the training forward (``jax.checkpoint_policies``
-# names); the JAX package's dry run also sweeps others, which wait for the
-# port of ``launch/dryrun.py``
-REMAT_POLICIES = ("nothing_saveable", "everything_saveable")
+# names) that save products: the ops whose results each keeps
+_SAVED_PRODUCTS = {
+    "dots_saveable": {_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm},
+    "dots_with_no_batch_dims_saveable": {_aten.mm, _aten.addmm},
+}
+_ALIASES = {"checkpoint_dots": "dots_saveable",
+            "checkpoint_dots_with_no_batch_dims":
+            "dots_with_no_batch_dims_saveable"}
+REMAT_POLICIES = ("nothing_saveable", "everything_saveable",
+                  *_SAVED_PRODUCTS, *_ALIASES)
+# ``jax.checkpoint_policies`` entries that build a policy from arguments
+# (names, offload memories, two policies), which a name alone cannot give
+_POLICIES_WITH_ARGUMENTS = ("offload_dot_with_no_batch_dims",
+                            "save_and_offload_only_these_names",
+                            "save_any_names_but_these",
+                            "save_anything_except_these_names",
+                            "save_from_both_policies",
+                            "save_only_these_names")
+
+
+def _check_remat_policy(name: str) -> str:
+    """The policy ``name`` stands for (an alias resolved); raises on a
+    policy that takes arguments and on an unknown name."""
+    if name in _POLICIES_WITH_ARGUMENTS:
+        raise ValueError(f"remat policy {name!r} takes arguments (names, "
+                         f"offload memories or policies), which a policy "
+                         f"name cannot give; use one of {REMAT_POLICIES}")
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r}; known: "
+                         f"{REMAT_POLICIES}")
+    return _ALIASES.get(name, name)
+
+
+def _selective_remat(saved: set):
+    """``context_fn`` of a superblock's checkpoint that saves the results
+    of the ops in ``saved`` and recomputes everything else, saving
+    nothing inside a query-block checkpoint."""
+    def policy(ctx, op, *args, **kwargs):
+        if op.overloadpacket in saved and not L.in_inner_remat():
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return lambda: create_selective_checkpoint_contexts(policy)
 
 
 def resolve_device(device) -> torch.device:
@@ -141,20 +194,34 @@ class VocabParallelEmbed(torch.autograd.Function):
         return None, dtable, None, None
 
 
+class _RegionInput(torch.autograd.Function):
+    """Megatron's f at the start of a tensor-parallel region: identity
+    forward; backward places the grad as the activations are placed
+    (``placements``), all-reducing the partial sums over 'model' that the
+    region's sharded products leave."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.placements), None
+
+
 class LMModel(nn.Module):
     def __init__(self, cfg: ArchConfig, attn_score_dtype: str = "float32",
                  device="cuda", remat_policy: str = "nothing_saveable", *,
                  ctx: Optional[ShardCtx] = None):
         super().__init__()
-        if remat_policy not in REMAT_POLICIES:
-            raise ValueError(
-                f"remat policy {remat_policy!r}: the port has "
-                f"{REMAT_POLICIES}; the others belong to the dry-run slice "
-                f"(launch/dryrun.py), not yet ported")
+        policy = _check_remat_policy(remat_policy)
         dev = resolve_device(device)
         self.cfg = cfg
         self.ctx = ctx
         self.remat_policy = remat_policy
+        self._remat_saved = _SAVED_PRODUCTS.get(policy)
+        self._remat = policy != "everything_saveable"
         self.score_dtype = _DTYPES[attn_score_dtype]
         # MHA head counts that do not divide the model axis replicate
         # attention under the baseline rules; with ctx.uneven, H (and K,
@@ -331,8 +398,11 @@ class LMModel(nn.Module):
         """``gqa_attention`` of q [B, S, H, hd] against k, v.  On DTensors
         each rank attends its own rows and heads on its local shards: rows
         are independent, and so are heads where q's and k's heads are both
-        split evenly (a GQA group stays on one rank); otherwise the heads
-        are gathered whole over that mesh dim first."""
+        split evenly (a GQA group stays on one rank).  Where q's heads are
+        split evenly and k's are whole (fewer KV heads than the axis), each
+        rank takes the KV heads its own query heads read, when its heads
+        are whole groups or lie in one group; otherwise the heads are
+        gathered whole over that mesh dim first."""
         cfg = self.cfg
 
         def attend(q, k, v):
@@ -343,22 +413,87 @@ class LMModel(nn.Module):
         if not isinstance(q, DTensor):
             return attend(q, k, v)
         mesh = q.device_mesh
-
-        def local(i, p, pk):
-            if p == Shard(0):
-                return p
+        H, K = q.shape[2], k.shape[2]
+        G = H // K
+        want_q, want_k, grad_k, picks = [], [], [], []
+        for i, (p, pk) in enumerate(zip(q.placements, k.placements)):
             n = mesh.size(i)
-            if p == pk == Shard(2) and q.shape[2] % n == k.shape[2] % n == 0:
-                return p
-            return Replicate()
-        want = [local(i, p, pk) for i, (p, pk)
-                in enumerate(zip(q.placements, k.placements))]
-        o = attend(*(t.redistribute(mesh, want).to_local()
-                     for t in (q, k, v)))
-        return DTensor.from_local(o, mesh, want)
+            if p == Shard(0):
+                want_q.append(p), want_k.append(p), grad_k.append(p)
+            elif p == pk == Shard(2) and H % n == K % n == 0:
+                want_q.append(p), want_k.append(p), grad_k.append(p)
+            elif p == Shard(2) and H % n == 0 and (
+                    (H // n) % G == 0 or G % (H // n) == 0):
+                # this rank's query heads read KV heads [a, a + c) of the
+                # whole k, v; their grads are this rank's part of a sum
+                h = H // n
+                picks.append(((mesh.get_local_rank(i) * h) // G,
+                              max(h // G, 1)))
+                want_q.append(p), want_k.append(Replicate())
+                grad_k.append(Partial())
+            else:
+                want_q.append(Replicate()), want_k.append(Replicate())
+                grad_k.append(Replicate())
+        ql = local_shard(q, want_q)
+        kl, vl = (local_shard(t, want_k, grad_k) for t in (k, v))
+        if picks:
+            (a, c), = picks
+            kl, vl = kl[:, :, a:a + c], vl[:, :, a:a + c]
+        return DTensor.from_local(attend(ql, kl, vl), mesh, want_q)
+
+    def _attend_own_heads(self, p, x, positions):
+        """Attention of the training forward where the query heads are
+        split evenly over the model axis and the KV heads are too few to
+        split (their weights replicated): each rank projects its own rows
+        onto its own query heads and only the KV heads those read, on
+        local shards, as XLA's partitioner does.  Returns the output as a
+        DTensor (rows and query heads sharded), or None where another
+        layout applies."""
+        mesh = x.device_mesh
+        wq, wk = p["wq"], p["wk"]
+        m = mesh.mesh_dim_names.index(self.ctx.model_axis)
+        H, K = wq.shape[1], wk.shape[1]
+        n, G = mesh.size(m), H // K
+        if wq.placements[m] != Shard(1) or wk.placements[m] != Replicate() \
+                or H % n or not ((H // n) % G == 0 or G % (H // n) == 0):
+            return None
+        h = H // n
+        a = (mesh.get_local_rank(m) * h) // G
+        kv = slice(a, a + max(h // G, 1))
+        rows = [Replicate() if i == m else pl
+                for i, pl in enumerate(x.placements)]
+        shards_rows = [isinstance(pl, Shard) for pl in rows]
+        # x is whole over 'model' and each rank's q, k, v read it: its grad
+        # is a partial sum there; a weight's grad comes from this rank's
+        # rows (partial over the row axes) and, for the KV weights that
+        # every rank slices differently, partial over 'model' too
+        xl = local_shard(x, rows, [Partial() if i == m else pl
+                                   for i, pl in enumerate(rows)])
+
+        def weight(w):
+            return local_shard(w, w.placements, [
+                Partial() if r or (i == m and w.placements[m] == Replicate())
+                else pl for i, (r, pl) in enumerate(zip(shards_rows,
+                                                        w.placements))])
+        ql = _heads_in(xl, weight(wq))
+        kl = _heads_in(xl, weight(wk)[:, kv])
+        vl = _heads_in(xl, weight(p["wv"])[:, kv])
+        cfg = self.cfg
+        ql = L.apply_rope(ql, positions, cfg.rope_theta)
+        kl = L.apply_rope(kl, positions, cfg.rope_theta)
+        o = L.gqa_attention(ql, kl, vl, positions, positions,
+                            swa_window=cfg.swa_window,
+                            softcap=cfg.attn_logit_softcap,
+                            score_dtype=self.score_dtype)
+        return DTensor.from_local(o, mesh, [Shard(2) if i == m else pl
+                                            for i, pl in enumerate(rows)])
 
     def _attention_full(self, p, x, positions, want_cache: bool,
                         capacity: int = 0):
+        if not want_cache and isinstance(x, DTensor):
+            o = self._attend_own_heads(p, x, positions)
+            if o is not None:
+                return _heads_out(o, p["wo"]), None
         q, k, v = self._qkv(p, x, positions)
         o = self._attend(q, k, v, positions)
         out = _heads_out(o, p["wo"])
@@ -381,9 +516,12 @@ class LMModel(nn.Module):
         cfg = self.cfg
         ragged = pos.ndim == 1
         k_c, v_c = cache["k"], cache["v"]
-        C = k_c.shape[1]
         posv = pos[:, None] if ragged else pos.reshape(1)
         q, k, v = self._qkv(p, x, posv)
+        if isinstance(k_c, DTensor):
+            return _heads_out(self._decode_sharded(q, k, v, k_c, v_c, pos),
+                              p["wo"])
+        C = k_c.shape[1]
         slots = torch.arange(C, dtype=torch.int64, device=x.device)
         slot = pos % C
         if ragged:
@@ -393,20 +531,68 @@ class LMModel(nn.Module):
         else:
             k_c.index_copy_(1, slot.reshape(1), k.to(k_c.dtype))
             v_c.index_copy_(1, slot.reshape(1), v.to(v_c.dtype))
-        if cfg.swa_window and cfg.swa_window == C:
-            p_ = pos[:, None] if ragged else pos
-            slot_pos = p_ - ((p_ - slots) % C)
-        else:
-            slot_pos = slots
-        o = L.decode_attention(q, k_c, v_c, slot_pos, pos,
+        o = L.decode_attention(q, k_c, v_c, self._slot_positions(slots, pos,
+                                                                 C), pos,
                                softcap=cfg.attn_logit_softcap)
         return _heads_out(o, p["wo"])
+
+    def _slot_positions(self, slots, pos, C: int):
+        """The absolute position each cache slot in ``slots`` holds: the
+        slot itself, or on a ring (SWA) cache the latest position that
+        maps to it."""
+        cfg = self.cfg
+        if cfg.swa_window and cfg.swa_window == C:
+            p_ = pos[:, None] if pos.ndim == 1 else pos
+            return p_ - ((p_ - slots) % C)
+        return slots
+
+    def _decode_sharded(self, q, k, v, k_c, v_c, pos):
+        """Decode attention against a KV cache whose slots are sharded over
+        the model axis (``cache_pspecs``, the flash-decoding layout).  Each
+        rank holds its batch rows' share of the slots: the new k, v are
+        written by the rank whose slot range holds ``pos % C``, into its
+        own shard, and attention runs over the local slots, combined over
+        the model group (``decode_attention``'s ``group``).  Returns the
+        attention output as a DTensor of the batch rows, every head
+        whole."""
+        mesh = k_c.device_mesh
+        m = mesh.mesh_dim_names.index(self.ctx.model_axis)
+        rows = [Replicate() if i == m else pl
+                for i, pl in enumerate(k_c.placements)]
+        ql, kl, vl = (t.redistribute(mesh, rows).to_local()
+                      for t in (q, k, v))
+        kc, vc = k_c.to_local(), v_c.to_local()
+        C, Cl = k_c.shape[1], kc.shape[1]
+        n, r = mesh.size(m), mesh.get_local_rank(m)
+        off = min(r * -(-C // n), C)        # torch.chunk's split of C
+        if pos.ndim == 1:                   # this rank's rows' positions
+            pos = DTensor.from_local(pos, mesh, [Replicate()] * mesh.ndim
+                                     ).redistribute(mesh, rows).to_local()
+        local = pos % C - off
+        inside = (local >= 0) & (local < Cl)
+        idx = torch.where(inside, local, 0)
+        for cache, new in ((kc, kl), (vc, vl)):
+            new = new.to(cache.dtype)
+            if pos.ndim == 1:
+                b = torch.arange(cache.shape[0], device=cache.device)
+                cache[b, idx] = torch.where(inside[:, None, None], new[:, 0],
+                                            cache[b, idx])
+            else:
+                at = idx.reshape(1)
+                cache.index_copy_(1, at, torch.where(
+                    inside, new, cache.index_select(1, at)))
+        slots = off + torch.arange(Cl, dtype=torch.int64, device=kc.device)
+        o = L.decode_attention(ql, kc, vc, self._slot_positions(slots, pos, C),
+                               pos, softcap=self.cfg.attn_logit_softcap,
+                               group=mesh.get_group(m))
+        return DTensor.from_local(o, mesh, rows)
 
     def _sublayer(self, p, x, kind, positions, mode: str, cache=None,
                   pos=None, capacity: int = 0):
         cfg = self.cfg
         mixer, ffn = kind
-        h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        h = self._region(_RegionInput,
+                         L.rms_norm(x, p["norm1"], cfg.norm_eps))
         new_cache = None
         if mixer == "attn":
             if mode == "decode":
@@ -425,15 +611,19 @@ class LMModel(nn.Module):
                                                    return_state=True)
             else:
                 a = ssm_lib.ssm_forward(h, p["ssm"], cfg.d_model, cfg.ssm)
-        x = x + cfg.residual_scale * a
+        # the residual stream keeps the activations' layout: a mixer's or
+        # an FFN's partial sums over 'model' are all-reduced (Megatron's
+        # layout; DTensor's own choice may scatter them over 'model')
+        x = x + cfg.residual_scale * self._region(Reduced, a)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if ffn is not None:
-            h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+            h = self._region(_RegionInput,
+                             L.rms_norm(x, p["norm2"], cfg.norm_eps))
             if ffn == "moe":
                 y, aux = moe_lib.moe_mlp(h, p["moe"], cfg.moe, cfg.mlp_type)
             else:
                 y = L.mlp(h, p["mlp"], cfg.mlp_type)
-            x = x + cfg.residual_scale * y
+            x = x + cfg.residual_scale * self._region(Reduced, y)
         return x, aux, new_cache
 
     def _lookup(self, tokens):
@@ -494,6 +684,20 @@ class LMModel(nn.Module):
         return constrain(x, self.ctx, dp if len(dp) > 1 else dp[0], None,
                          None)
 
+    def _region(self, fn, h):
+        """``h`` through a region boundary (``_RegionInput`` or
+        ``Reduced``) to the activations' layout under a ctx; without
+        grad simply redistributed.  A model axis of one rank has no
+        partial sums to reduce, and the boundary is left out."""
+        if self.ctx is None or not isinstance(h, DTensor) \
+                or h.shape[0] == 1 or self.ctx.model_size == 1:
+            return h
+        if not torch.is_grad_enabled():
+            return self._constrain_act(h) if fn is Reduced else h
+        dp = self.ctx.dp_axes
+        return fn.apply(h, self.ctx.named(dp if len(dp) > 1 else dp[0],
+                                          None, None))
+
     def _superblock(self, blk, x, aux, positions):
         x = self._constrain_act(x)
         for i, kind in enumerate(self.kinds):
@@ -513,14 +717,19 @@ class LMModel(nn.Module):
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        remat = self.remat_policy == "nothing_saveable" \
-            and torch.is_grad_enabled()
+        remat = self._remat and torch.is_grad_enabled()
+        extra = {} if self._remat_saved is None else \
+            {"context_fn": _selective_remat(self._remat_saved)}
         for blk in self.blocks:
             if remat:
                 x, aux = checkpoint(self._superblock, blk, x, aux, positions,
-                                    use_reentrant=False)
+                                    use_reentrant=False, **extra)
             else:
                 x, aux = self._superblock(blk, x, aux, positions)
+        # the final norm and the head see the activations' own layout
+        # (DTensor may otherwise leave the residual sharded over 'model'
+        # by d, and the head's product partial)
+        x = self._constrain_act(x)
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         if return_hidden:
             return x, aux
@@ -535,11 +744,26 @@ class LMModel(nn.Module):
             return min(cfg.swa_window, seq_len)
         return seq_len
 
-    @torch.inference_mode()
+    def serving_mode(self):
+        """The context serving runs in: ``torch.inference_mode``, or under
+        a ctx ``torch.no_grad`` with ``sharded_scope`` (DTensor's views
+        under inference mode take the global sizes for the local ones)."""
+        if self.ctx is None:
+            return torch.inference_mode()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.no_grad())
+        stack.enter_context(self.sharded_scope())
+        return stack
+
     def prefill(self, tokens: torch.Tensor,
                 embeds: Optional[torch.Tensor] = None,
                 capacity: Optional[int] = None):
-        """Returns (cache, last-position logits [B, V])."""
+        """Returns (cache, last-position logits [B, V]).  Under a ctx the
+        cache is placed by ``cache_pspecs``."""
+        with self.serving_mode():
+            return self._prefill(tokens, embeds, capacity)
+
+    def _prefill(self, tokens, embeds, capacity):
         x = self._embed(tokens, embeds)
         S = x.shape[1]
         capacity = capacity or self.capacity_for(S)
@@ -556,18 +780,27 @@ class LMModel(nn.Module):
         cache = {key: {name: torch.stack([c[key][name] for c in per_block])
                        for name in per_block[0][key]}
                  for key in per_block[0]}
+        if self.ctx is not None:
+            specs = self.cache_pspecs(x.shape[0])
+            cache = {key: {name: constrain(t, self.ctx, *specs[key][name])
+                           for name, t in layer.items()}
+                     for key, layer in cache.items()}
         x = L.rms_norm(x[:, -1:], self.final_norm, self.cfg.norm_eps)
         logits = self._unembed(x)[:, 0]
         return cache, logits
 
-    @torch.inference_mode()
     def decode_step(self, cache: Pytree, tokens: torch.Tensor, pos):
         """tokens: [B, 1]; pos: the absolute position of the new token, a
         scalar or a [B] vector (ragged).  Writes ``cache`` in place and
         returns (cache, logits [B, V]).  An SSM conv tail whose new value
         has a wider dtype than the cache (f32 compute on a bf16 cache)
         replaces its stacked tensor with the wider one, as the reference's
-        scan output does."""
+        scan output does.  Under a ctx the cache is placed by
+        ``cache_pspecs`` (as ``prefill`` leaves it)."""
+        with self.serving_mode():
+            return self._decode_step(cache, tokens, pos)
+
+    def _decode_step(self, cache, tokens, pos):
         x = self._embed(tokens, None)
         pos = pos.to(x.device).long() if isinstance(pos, torch.Tensor) \
             else torch.full((), pos, dtype=torch.long, device=x.device)

@@ -14,9 +14,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import mlp
+from repro_torch.models.sharding import local_shard
 
 # tokens per dispatch group; small groups bound the one-hot dispatch cost.
 GROUP_SIZE = 512
@@ -68,6 +70,61 @@ def route(xg: torch.Tensor, router: torch.Tensor, top_k: int):
     return probs, gate_vals, expert_idx
 
 
+def _expert_ffn(disp, comb, xg, w1, w3, w2, mlp_type: str):
+    """Dispatch, the experts' FFN and combine on plain tensors."""
+    xe = torch.einsum("sgec,sgd->secd", disp, xg)           # [G, E, C, d]
+    if mlp_type == "swiglu":
+        h = F.silu(torch.einsum("secd,edf->secf", xe, w1)) \
+            * torch.einsum("secd,edf->secf", xe, w3)
+    else:
+        h = F.gelu(torch.einsum("secd,edf->secf", xe, w1),
+                   approximate="tanh")
+    ye = torch.einsum("secf,efd->secd", h, w2)              # [G, E, C, d]
+    return torch.einsum("sgec,secd->sgd", comb, ye)         # [G, g, d]
+
+
+def _experts(disp, comb, xg, p, dtype, mlp_type: str):
+    """The experts' output [G, g, d].  On DTensors each rank runs its own
+    groups' tokens through its own experts (expert-sharded weights) or its
+    own share of every expert's hidden dim (FFN-sharded), on local shards,
+    and the outputs are partial sums over the model axis (the dispatch's
+    products merge the group and expert dims, which DTensor cannot shard
+    over two mesh dims at once).  The tokens and the routing are whole on
+    each rank of that axis, so their grads are partial sums there too; the
+    weights' grads are partial sums over the axes that shard the rows."""
+    ws = [p[n].to(dtype) if n in ("w1", "w2") or mlp_type == "swiglu"
+          else None for n in ("w1", "w3", "w2")]
+    if not isinstance(xg, DTensor):
+        return _expert_ffn(disp, comb, xg, *ws, mlp_type)
+    mesh = xg.device_mesh
+    w1 = ws[0]
+    want, grad, experts = [], [], None
+    for i, pl in enumerate(w1.placements):
+        if pl == Shard(0):                    # experts over this mesh dim
+            n, r = mesh.size(i), mesh.get_local_rank(i)
+            el = -(-w1.shape[0] // n)
+            experts = (r * el, min((r + 1) * el, w1.shape[0]))
+        if isinstance(pl, Shard):             # a model-axis dim
+            want.append(Replicate()), grad.append(Partial())
+        else:
+            want.append(xg.placements[i] if xg.placements[i] == Shard(0)
+                        else Replicate())
+            grad.append(want[-1])
+    dl, cl, xl = (local_shard(t, want, grad) for t in (disp, comb, xg))
+    if experts is not None:
+        dl, cl = (t[:, :, experts[0]:experts[1]] for t in (dl, cl))
+    # each rank's weight grads come from its own rows: partial over the
+    # mesh dims that shard the rows
+    rows = [isinstance(g, Shard) for g in grad]
+    local = [None if w is None else local_shard(w, w.placements, [
+        Partial() if r else pl for r, pl in zip(rows, w.placements)])
+        for w in ws]
+    y = _expert_ffn(dl, cl, xl, *local, mlp_type)
+    return DTensor.from_local(y, mesh, [
+        Partial() if isinstance(pl, Shard) else w
+        for pl, w in zip(w1.placements, want)])
+
+
 def moe_mlp(x: torch.Tensor, p, cfg: MoEConfig, mlp_type: str) -> tuple:
     """x: [B, S, d] -> ([B, S, d], aux_loss scalar)."""
     B, S, d = x.shape
@@ -97,18 +154,14 @@ def moe_mlp(x: torch.Tensor, p, cfg: MoEConfig, mlp_type: str) -> tuple:
     comb = torch.einsum("sgk,sgke,sgkc->sgec", gate_vals.to(dtype), kept,
                         cap_onehot)
 
-    xe = torch.einsum("sgec,sgd->secd", disp, xg)           # [G, E, C, d]
-    w1 = p["w1"].to(dtype)
-    w2 = p["w2"].to(dtype)
-    if mlp_type == "swiglu":
-        w3 = p["w3"].to(dtype)
-        h = F.silu(torch.einsum("secd,edf->secf", xe, w1)) \
-            * torch.einsum("secd,edf->secf", xe, w3)
-    else:
-        h = F.gelu(torch.einsum("secd,edf->secf", xe, w1),
-                   approximate="tanh")
-    ye = torch.einsum("secf,efd->secd", h, w2)              # [G, E, C, d]
-    y = torch.einsum("sgec,secd->sgd", comb, ye)            # [G, g, d]
+    # load-balancing auxiliary loss (Switch-style), before the experts so
+    # that a checkpointed block's recompute can stop after them (the
+    # combine's output is needed by no grad)
+    density = torch.mean(onehot[..., 0, :].float(), dim=1)  # [G, E]
+    density_prob = torch.mean(probs, dim=1)                 # [G, E]
+    aux = torch.mean(torch.sum(density * density_prob, dim=-1)) * E
+
+    y = _experts(disp, comb, xg, p, dtype, mlp_type)       # [G, g, d]
     y = y.reshape(B, S, d)
 
     if cfg.num_shared_experts:
@@ -116,9 +169,4 @@ def moe_mlp(x: torch.Tensor, p, cfg: MoEConfig, mlp_type: str) -> tuple:
         if mlp_type == "swiglu":
             sh["w3"] = p["shared_w3"]
         y = y + mlp(x, sh, mlp_type)
-
-    # load-balancing auxiliary loss (Switch-style)
-    density = torch.mean(onehot[..., 0, :].float(), dim=1)  # [G, E]
-    density_prob = torch.mean(probs, dim=1)                 # [G, E]
-    aux = torch.mean(torch.sum(density * density_prob, dim=-1)) * E
     return y, aux

@@ -24,6 +24,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -218,3 +220,48 @@ def cache_spec(kind: str, ctx: ShardCtx, batch: int) -> P:
 def map_specs(fn, specs):
     """``specs`` (a tree of ``P``) with ``fn`` applied to every spec."""
     return tree_map(fn, specs, is_leaf=lambda s: isinstance(s, P))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def local_shard(t: DTensor, placements, grad_placements=None):
+    """``t`` redistributed to ``placements`` and its local shard, whose
+    grad is handed back contiguous: code that works on local shards (and
+    whose products leave transposed grads) meets DTensor's backward of
+    the ops before it, which views the grad and cannot view a
+    non-contiguous one."""
+    local = t.redistribute(t.device_mesh, placements).to_local(
+        grad_placements=grad_placements)
+    return _ContiguousGrad.apply(local) if local.requires_grad else local
+
+
+class Reduced(torch.autograd.Function):
+    """``t`` placed as ``placements`` (its partial sums all-reduced: each
+    partial dim is replicated there); backward passes the grad on as it
+    is, whole on every rank, which is each partial's grad (DTensor's own
+    redistribute would hand back a partial grad)."""
+
+    @staticmethod
+    def forward(ctx, t, placements):
+        ctx.placements = placements
+        return t.redistribute(t.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.placements), None
+
+
+def reduce_partial(t: DTensor) -> DTensor:
+    """``t`` with its partial sums all-reduced (``Reduced``)."""
+    want = tuple(Replicate() if p.is_partial() else p for p in t.placements)
+    if want == tuple(t.placements):
+        return t
+    return Reduced.apply(t, want)

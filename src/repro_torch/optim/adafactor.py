@@ -10,10 +10,15 @@ Every rule acts on the JAX package's stacked leaf (``models.stacked``):
 a stacked ``[n_super, d]`` norm scale is factored, its column means run
 across superblocks, and the update's RMS clip covers the whole leaf.  So
 the port stacks each leaf's grads for the update; state is stacked f32.
+On a model's DTensors the state is DTensors placed by ``state_spec_like``
+and the update runs on them (the row and column means of a sharded dim
+become partial sums that DTensor reduces where the state is written).
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.models import stacked
 from repro_torch.models.sharding import P, map_specs
@@ -34,17 +39,39 @@ class Adafactor:
         return len(shape) >= 2
 
     def init(self, params):
+        """f32 zeros in the reference's stacked layout.  For a leaf of
+        DTensors the state is a DTensor on their mesh, placed as
+        ``state_spec_like`` places it: the row state keeps the leaf's
+        shardings but that of its last dim, the column state moves the
+        last dim's sharding to its own last dim and drops that of the
+        second to last (a 0/1-D leaf's column state is replicated)."""
+        def state(leaf, shape, dims):
+            t = stacked.slices(leaf)[0]
+            if not isinstance(t, DTensor):
+                return torch.zeros(shape, dtype=torch.float32,
+                                   device=t.device)
+            shift = 1 if isinstance(leaf, list) else 0
+            out = []
+            for pl in t.placements:
+                d = dims.get(pl.dim + shift) if isinstance(pl, Shard) \
+                    else None
+                out.append(Shard(d) if d is not None else Replicate())
+            return dtensor_zeros(shape, dtype=torch.float32,
+                                 device_mesh=t.device_mesh, placements=out)
+
         def vr(leaf):
             s = stacked.ref_shape(leaf)
-            return torch.zeros(s[:-1] if self._factored(s) else s,
-                               dtype=torch.float32,
-                               device=stacked.device(leaf))
+            if not self._factored(s):
+                return state(leaf, s, {i: i for i in range(len(s))})
+            return state(leaf, s[:-1], {i: i for i in range(len(s) - 1)})
 
         def vc(leaf):
             s = stacked.ref_shape(leaf)
-            return torch.zeros(s[:-2] + s[-1:] if self._factored(s) else (1,),
-                               dtype=torch.float32,
-                               device=stacked.device(leaf))
+            if not self._factored(s):
+                return state(leaf, (1,), {})
+            dims = {i: i for i in range(len(s) - 2)}
+            dims[len(s) - 1] = len(s) - 2
+            return state(leaf, s[:-2] + s[-1:], dims)
 
         return {"v_row": stacked.map_leaves(vr, params),
                 "v_col": stacked.map_leaves(vc, params)}

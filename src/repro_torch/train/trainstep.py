@@ -8,7 +8,9 @@ Memory design notes (as in the JAX package):
     recomputes the chunk logits.
   * Optional microbatching (gradient accumulation) splits the batch and
     accumulates grads in fp32 — the standard large-scale trick when the
-    per-step activation footprint exceeds device memory.
+    per-step activation footprint exceeds device memory.  On DTensors the
+    accumulators are placed as their parameters and each microbatch keeps
+    the batch's data-axis sharding (``_split``).
 
 The parameters live in the model.  ``train_step`` takes the model's
 parameter tree (``models.model.param_tree``) and updates it and the
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import stacked
@@ -174,6 +177,38 @@ def grad_tree(params, flat_grads) -> Dict:
     return grads
 
 
+def _split(x, microbatches: int) -> list:
+    """``x``'s rows as ``microbatches`` equal microbatches.  A plain tensor
+    splits as the reference splits (``reshape(microbatches, B / n)``).  A
+    DTensor batch splits each rank's own rows, so every microbatch keeps
+    the batch's data-axis sharding: microbatch ``m`` holds the ``m``-th
+    part of every rank's rows, where the reference's holds ``B / n``
+    consecutive rows.  The grads and the loss are sums over all rows
+    either way."""
+    if not isinstance(x, DTensor):
+        B = x.shape[0]
+        return list(x.reshape(microbatches, B // microbatches,
+                              *x.shape[1:]))
+    local = x.to_local()
+    b = local.shape[0]
+    if b % microbatches:
+        raise ValueError(f"{b} rows on this rank do not split into "
+                         f"{microbatches} microbatches")
+    return [DTensor.from_local(part, x.device_mesh, x.placements)
+            for part in local.reshape(microbatches, b // microbatches,
+                                      *local.shape[1:])]
+
+
+def _zeros_like_f32(p):
+    """An f32 grad accumulator for parameter ``p``: a DTensor placed as
+    ``p`` when ``p`` is one."""
+    if isinstance(p, DTensor):
+        return dtensor_zeros(p.shape, dtype=torch.float32,
+                             device_mesh=p.device_mesh,
+                             placements=p.placements)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def make_train_step(model, optimizer, microbatches: int = 1,
                     aux_weight: float = 0.01, on_phase=None):
     """Returns train_step(params, opt_state, batch, step) ->
@@ -205,13 +240,8 @@ def make_train_step(model, optimizer, microbatches: int = 1,
         if microbatches == 1:
             loss, metrics, gflat = grads_of(flat, batch)
         else:
-            def split(x):
-                B = x.shape[0]
-                return x.reshape(microbatches, B // microbatches,
-                                 *x.shape[1:])
-            mb = {k: split(v) for k, v in batch.items()}
-            gflat = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in flat]
+            mb = {k: _split(v, microbatches) for k, v in batch.items()}
+            gflat = [_zeros_like_f32(p) for p in flat]
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             for m in range(microbatches):
                 lm, _, g = grads_of(flat, {k: v[m] for k, v in mb.items()})

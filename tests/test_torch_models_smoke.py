@@ -112,9 +112,14 @@ def test_attention_blocks_recomputed_under_grad():
 
 
 def test_unknown_remat_policy_raises():
-    with pytest.raises(ValueError, match="dryrun"):
-        build_model(get_smoke_config("llama3-8b"), device="cpu",
-                    remat_policy="dots_saveable")
+    """A policy that takes arguments and an unknown name raise, each
+    naming the policy."""
+    cfg = get_smoke_config("llama3-8b")
+    with pytest.raises(ValueError, match="save_only_these_names.*takes "
+                                         "arguments"):
+        build_model(cfg, device="cpu", remat_policy="save_only_these_names")
+    with pytest.raises(ValueError, match="unknown remat policy 'no_such'"):
+        build_model(cfg, device="cpu", remat_policy="no_such")
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
