@@ -198,7 +198,6 @@ class Job:                             # numpy fields, and the manager's
     result: Any = None
     error: Optional[BaseException] = None
     done: threading.Event = field(default_factory=threading.Event)
-    timings: Dict[str, float] = field(default_factory=dict)
     # normalized 'direct' payload (set at submit time)
     rows: Optional[np.ndarray] = None
     lens: Optional[np.ndarray] = None
@@ -219,9 +218,15 @@ class Job:                             # numpy fields, and the manager's
     device_index: int = -1
     # trace stamps (perf_counter): dispatch enqueue, batch launch
     # start/end — consumers (SAI) turn these into engine queue/launch
-    # spans after wait()
+    # spans after wait().  Within the launch: t_staged once the pinned
+    # staging is filled and its H2D enqueued (synchronised too with
+    # overlap=False), t_waited once the kernel is enqueued and the
+    # output's D2H has synchronised; the host sees no kernel time of
+    # its own (the device trace does)
     t_submit: float = 0.0
     t_exec0: float = 0.0
+    t_staged: float = 0.0
+    t_waited: float = 0.0
     t_exec1: float = 0.0
 
     def wait(self):
@@ -812,16 +817,14 @@ class CrystalGPU:
                         [c.result[d:] for c, d in zip(results, drops)])
             except BaseException as e:
                 parent.error = e
-        merged: Dict[str, float] = {}
-        for c in results:                 # shards overlap: max per stage
-            for kk, v in (c.timings or {}).items():
-                merged[kk] = max(merged.get(kk, 0.0), v)
-        parent.timings = merged
-        # trace stamps span the union of the children's execution
+        # trace stamps span the union of the children's execution; a
+        # stage ends when its last shard's does
         executed = [c for c in results if c.t_exec1 > 0.0]
         if executed:
             parent.t_submit = min(c.t_submit for c in executed)
             parent.t_exec0 = min(c.t_exec0 for c in executed)
+            parent.t_staged = max(c.t_staged for c in executed)
+            parent.t_waited = max(c.t_waited for c in executed)
             parent.t_exec1 = max(c.t_exec1 for c in executed)
         parent.done.set()
         if parent.callback is not None:
@@ -1130,7 +1133,6 @@ class CrystalGPU:
     # -- fused direct batch --------------------------------------------
     def _execute_direct(self, dev: _DeviceState, slot: dict,
                         batch: List[Job]):
-        t0 = time.perf_counter()
         # stage 1-2: staging + transfer in.  One padded [B, W] batch for
         # the whole burst; rows are length-bound so padding to the widest
         # row never changes a digest.  B and W are bucketed to powers of
@@ -1153,21 +1155,19 @@ class CrystalGPU:
             dev_words = staging.view(torch.uint32).to(dev.device,
                                                       non_blocking=True)
             self._stage_sync(dev)
-            t1 = time.perf_counter()
+            t_staged = time.perf_counter()
             # stage 3: ONE kernel launch for the fused batch
             dig = md5.md5_words(dev_words, lens_w, stream=dev.stream)
             self._stage_sync(dev)
-            t2 = time.perf_counter()
             # stage 4: transfer out (digests only — 16 B per row); the
             # copy synchronises the manager's stream
             host = ops.digest_bytes(dig)
-        t3 = time.perf_counter()
-        timings = {"in": t1 - t0, "kernel": t2 - t1, "out": t3 - t2}
+        t_waited = time.perf_counter()
         r = 0
         for j in batch:
             n = j.rows.shape[0]
             j.result = host[r:r + n].copy()
-            j.timings = dict(timings)       # batch-wide stage times
+            j.t_staged, j.t_waited = t_staged, t_waited   # batch-wide
             r += n
         self._account(dev, len(batch), int(np.sum(lens)),
                       sum(j.lane == "scrub" for j in batch))
@@ -1199,7 +1199,6 @@ class CrystalGPU:
         kind = batch[0].kind
         if kind not in ("sliding", "gear"):
             raise ValueError(f"unknown job kind {kind!r}")
-        t0 = time.perf_counter()
         flats = [j.data.reshape(-1).astype(np.uint8, copy=False)
                  for j in batch]
         lens = [f.size for f in flats]
@@ -1220,7 +1219,7 @@ class CrystalGPU:
         with dev.on_device():
             dev_rows = staging.to(dev.device, non_blocking=True)
             self._stage_sync(dev)
-            t1 = time.perf_counter()
+            t_staged = time.perf_counter()
             if kind == "sliding":
                 window = int(meta.get("window", 48))
                 stride = int(meta.get("stride", 4))
@@ -1232,8 +1231,8 @@ class CrystalGPU:
                                       int(meta.get("version", 1)),
                                       stream=dev.stream)
             self._stage_sync(dev)
-            t2 = time.perf_counter()
             host = self._pull(slot, dev, out)
+        t_waited = time.perf_counter()
         for i, j in enumerate(batch):
             if kind == "sliding":
                 n_off = (lens[i] - window) // stride + 1
@@ -1241,10 +1240,7 @@ class CrystalGPU:
                     host[i], sliding_md5.phases_for(stride), n_off)
             else:
                 j.result = ops.gear_finish(host[i], lens[i])
-        t3 = time.perf_counter()
-        timings = {"in": t1 - t0, "kernel": t2 - t1, "out": t3 - t2}
-        for j in batch:
-            j.timings = dict(timings)       # batch-wide stage times
+            j.t_staged, j.t_waited = t_staged, t_waited   # batch-wide
         self._account(dev, len(batch), int(sum(lens)),
                       sum(j.lane == "scrub" for j in batch))
 

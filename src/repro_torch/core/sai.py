@@ -53,10 +53,10 @@ Configurations mirror the paper's evaluation matrix:
   ca='fixed'                -> fixed-size blocks + direct hashing
   ca='cdc'                  -> content-based chunking (sliding-window MD5)
   ca='cdc-gear'             -> beyond-paper gear-hash CDC
-  hasher='gpu' | 'cpu' | 'infinite'   ('infinite' = the paper's CA-Infinite
-        oracle: hash computation takes zero time — upper performance bound;
-        'tpu' is accepted as another name for 'gpu', so configurations
-        move between the JAX package and this one)
+  hasher='gpu' | 'cpu'      ('tpu' is accepted as another name for 'gpu',
+        so configurations move between the JAX package and this one; the
+        port has no CA-Infinite oracle: 'infinite' is refused, since a
+        traced write's sai/hash span shows the hash time it would hide)
 """
 from __future__ import annotations
 
@@ -66,8 +66,8 @@ import queue
 import threading
 import time
 from collections import OrderedDict
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from dataclasses import dataclass
+from typing import List, Optional
 
 import numpy as np
 
@@ -93,7 +93,7 @@ class SAIConfig:
     max_chunk: int = 4 << 20
     window: int = 48
     stride: int = 4
-    hasher: str = "gpu"               # gpu (alias tpu) | cpu | infinite
+    hasher: str = "gpu"               # gpu (alias tpu) | cpu
     stripe_width: int = 4
     store_lanes: int = 4              # parallel per-path commit lanes
     read_cache_bytes: int = 0         # block-level LRU read cache budget
@@ -112,6 +112,12 @@ class SAIConfig:
     #                                   interval).  No-op for in-memory
     #                                   stores.
 
+    def __post_init__(self):
+        if self.hasher not in ENGINE_HASHERS + ("cpu",):
+            raise ValueError(
+                f"hasher={self.hasher!r}: the port hashes with 'gpu' "
+                f"(alias 'tpu') or 'cpu' and has no CA-Infinite oracle")
+
 
 @dataclass
 class WriteStats:
@@ -119,7 +125,6 @@ class WriteStats:
     new_bytes: int = 0
     new_blocks: int = 0
     dup_blocks: int = 0
-    stage_s: Dict[str, float] = field(default_factory=dict)
 
     @property
     def similarity(self) -> float:
@@ -205,7 +210,7 @@ class ReadFuture:
 
 class _HashHandle:
     """Uniform handle over an in-flight chunk-digest computation: either
-    host digests computed eagerly (cpu / infinite / empty input) or one
+    host digests computed eagerly (cpu / empty input) or one
     or more offload-engine jobs — a whale submission splits into
     independently packed chunk groups (see ``SAI._submit_hash``) —
     whose digests are materialized in submission order on wait()."""
@@ -226,19 +231,39 @@ class _HashHandle:
         return self._digests
 
 
-def _trace_engine_jobs(trace: "Trace", handle: _HashHandle) -> None:
+def _trace_engine_jobs(trace: "Trace", handle: _HashHandle,
+                       parent: str) -> None:
     """Turn the engine jobs' t_submit/t_exec stamps into
-    engine/queue + engine/launch spans (per device, per lane).  Only
-    meaningful after ``handle.wait()``; cpu/infinite hashers have no
-    engine jobs and contribute no spans."""
+    engine/queue + engine/launch spans, and their stages into
+    engine/stage, engine/wait and engine/finish (per device, per lane),
+    each caused by ``parent``.  Only meaningful after ``handle.wait()``;
+    the cpu hasher has no engine jobs and contribute no spans."""
     for job in handle._jobs:
         if job.t_exec1 <= 0.0:
             continue
         if job.t_submit > 0.0:
             trace.add_span("engine/queue", job.t_submit, job.t_exec0,
-                           device=job.device_index, lane=job.lane)
-        trace.add_span("engine/launch", job.t_exec0, job.t_exec1,
+                           parent, device=job.device_index, lane=job.lane)
+        trace.add_span("engine/launch", job.t_exec0, job.t_exec1, parent,
                        device=job.device_index, lane=job.lane)
+        _trace_engine_stages(trace, job, parent)
+
+
+def _trace_engine_stages(trace: "Trace", job: crystal_mod.Job,
+                         parent: str) -> None:
+    """engine/stage [t_exec0, t_staged] (the pinned staging filled, the
+    H2D enqueued), engine/wait [t_staged, t_waited] (the kernel enqueued,
+    the output's D2H synchronised) and engine/finish [t_waited, t_exec1]
+    (results cut per job, the launch retired) of one executed job: what
+    the host does, not what the card does.  A fused launch stamps each
+    of its jobs alike."""
+    if job.t_waited <= 0.0:
+        return
+    for name, t0, t1 in (("engine/stage", job.t_exec0, job.t_staged),
+                         ("engine/wait", job.t_staged, job.t_waited),
+                         ("engine/finish", job.t_waited, job.t_exec1)):
+        trace.add_span(name, t0, t1, parent, device=job.device_index,
+                       lane=job.lane)
 
 
 _ORACLE_COUNTER = [0]
@@ -299,8 +324,10 @@ class SAI:
     def _pack_chunks(self, chunks: List[bytes]):
         return pack_blocks(chunks)
 
-    def _submit_hash(self, chunks: List[bytes]) -> _HashHandle:
+    def _submit_hash(self, chunks: List[bytes],
+                     trace: Optional[Trace] = None) -> _HashHandle:
         """Start hashing ``chunks``; non-blocking on the engine path.
+        ``trace`` takes one sai/hash/pack span per packed group.
 
         A whale submission (total bytes past twice the engine's shard
         threshold) splits into contiguous chunk groups packed and
@@ -312,15 +339,17 @@ class SAI:
         handle concatenates them in submission order."""
         if not chunks:
             return _HashHandle(digests=[])
-        if self.cfg.hasher in ("infinite", "cpu"):
-            # 'infinite' is the paper's CA-Infinite oracle — its hashing
-            # time is excluded from the timed stages by the caller.
+        if self.cfg.hasher == "cpu":
             return _HashHandle(digests=[block_digest_cpu(c)
                                         for c in chunks])
         eng = self.engine
         jobs = []
         for lo, hi in self._shard_groups(chunks, eng):
+            t0 = time.perf_counter()
             rows, lens = self._pack_chunks(chunks[lo:hi])
+            if trace is not None:
+                trace.add_span("sai/hash/pack", t0, time.perf_counter(),
+                               "sai/hash", rows=rows.shape[0])
             jobs.append(eng.submit("direct", rows, {"lens": lens},
                                    lane=self.cfg.lane))
         return _HashHandle(jobs=jobs)
@@ -352,7 +381,11 @@ class SAI:
     def _hash_chunks(self, chunks: List[bytes]) -> List[bytes]:
         return self._submit_hash(chunks).wait()
 
-    def _boundaries(self, data: bytes) -> List[int]:
+    def _boundaries(self, data: bytes,
+                    trace: Optional[Trace] = None) -> List[int]:
+        """Chunk ends of ``data``.  For content-defined chunking
+        ``trace`` takes the window-hash job (sai/chunk/slide, with that
+        job's engine stages) and the boundary scan (sai/chunk/scan)."""
         cfg = self.cfg
         if len(data) == 0:
             return []
@@ -360,7 +393,12 @@ class SAI:
             n = (len(data) + cfg.block_size - 1) // cfg.block_size
             return [min((i + 1) * cfg.block_size, len(data))
                     for i in range(n)]
+        if cfg.ca not in ("cdc", "cdc-gear"):
+            raise ValueError(self.cfg.ca)
+        t0 = time.perf_counter()
+        job = None
         if cfg.ca == "cdc":
+            window, stride = cfg.window, cfg.stride
             if cfg.hasher in ENGINE_HASHERS:
                 job = self.engine.submit(
                     "sliding", np.frombuffer(data, np.uint8),
@@ -369,11 +407,8 @@ class SAI:
                 hashes = job.wait()
             else:
                 hashes = _cpu_sliding(data, cfg.window, cfg.stride)
-            return chunking.select_boundaries(
-                hashes, len(data), window=cfg.window, stride=cfg.stride,
-                avg_chunk=cfg.avg_chunk, min_chunk=cfg.min_chunk,
-                max_chunk=cfg.max_chunk)
-        if cfg.ca == "cdc-gear":
+        else:
+            window = stride = 1
             if cfg.hasher in ENGINE_HASHERS:
                 job = self.engine.submit(
                     "gear", np.frombuffer(data, np.uint8), {},
@@ -381,11 +416,19 @@ class SAI:
                 hashes = job.wait()
             else:
                 hashes = _cpu_gear(data)
-            return chunking.select_boundaries(
-                hashes, len(data), window=1, stride=1,
-                avg_chunk=cfg.avg_chunk, min_chunk=cfg.min_chunk,
-                max_chunk=cfg.max_chunk)
-        raise ValueError(self.cfg.ca)
+        t1 = time.perf_counter()
+        bounds = chunking.select_boundaries(
+            hashes, len(data), window=window, stride=stride,
+            avg_chunk=cfg.avg_chunk, min_chunk=cfg.min_chunk,
+            max_chunk=cfg.max_chunk)
+        if trace is not None:
+            trace.add_span("sai/chunk/slide", t0, t1, "sai/chunk",
+                           bytes=len(data))
+            if job is not None:
+                _trace_engine_stages(trace, job, "sai/chunk/slide")
+            trace.add_span("sai/chunk/scan", t1, time.perf_counter(),
+                           "sai/chunk", chunks=len(bounds))
+        return bounds
 
     # ------------------------------------------------------------------
     # store stage (shared by sync write, async pipeline, checkpointer)
@@ -407,11 +450,18 @@ class SAI:
         Every digest is pinned for the whole claim -> store -> commit
         span, so the runtime GC can never reclaim a dedup-hit (or
         freshly stored) block before the block-map referencing it is
-        committed."""
+        committed.  ``trace`` takes sai/store/claim, sai/store/put,
+        sai/store/commit (the block map built and committed) and
+        sai/store/unpin."""
         mgr = self.manager
+        t_claim = time.perf_counter()
         mgr.pin_blocks(digests)
         try:
             locmap, claimed, waits = mgr.claim_blocks(digests)
+            t_put = time.perf_counter()
+            if trace is not None:
+                trace.add_span("sai/store/claim", t_claim, t_put,
+                               "sai/store")
             new_idx = set()
             try:
                 for i, (chunk, digest) in enumerate(zip(chunks, digests)):
@@ -425,6 +475,10 @@ class SAI:
             finally:
                 for digest in list(claimed):         # error path: release
                     mgr.finish_claim(digest, None)
+            t_commit = time.perf_counter()
+            if trace is not None:
+                trace.add_span("sai/store/put", t_put, t_commit,
+                               "sai/store", blocks=len(new_idx))
             blocks: List[BlockMeta] = []
             for i, (chunk, digest) in enumerate(zip(chunks, digests)):
                 locs = locmap.get(digest)
@@ -442,13 +496,20 @@ class SAI:
                 blocks.append(BlockMeta(digest, len(chunk), tuple(locs)))
             seq = mgr.commit_blockmap(path, blocks, total_len)
             if self.cfg.durable_sync and seq is not None:
-                t0 = time.perf_counter()
+                t_wal = time.perf_counter()
                 mgr.wait_durable(seq)
                 if trace is not None:
-                    trace.add_span("wal/commit", t0, time.perf_counter(),
-                                   seq=seq)
+                    trace.add_span("wal/commit", t_wal, time.perf_counter(),
+                                   "sai/store/commit", seq=seq)
+            if trace is not None:
+                trace.add_span("sai/store/commit", t_commit,
+                               time.perf_counter(), "sai/store")
         finally:
+            t_unpin = time.perf_counter()
             mgr.unpin_blocks(digests)
+            if trace is not None:
+                trace.add_span("sai/store/unpin", t_unpin,
+                               time.perf_counter(), "sai/store")
         return stats
 
     def _put_block(self, path: str, digest: bytes, chunk: bytes, locs):
@@ -486,7 +547,6 @@ class SAI:
         """ca='none': direct striping, no hashing (synthetic digests)."""
         cfg, mgr = self.cfg, self.manager
         stats = WriteStats(total_bytes=len(data))
-        t0 = time.perf_counter()
         bs = cfg.block_size
         blocks = []
         pinned: List[bytes] = []
@@ -510,7 +570,6 @@ class SAI:
                 mgr.wait_durable(seq)
         finally:
             mgr.unpin_blocks(pinned)
-        stats.stage_s = {"store": time.perf_counter() - t0}
         return stats
 
     # ------------------------------------------------------------------
@@ -521,17 +580,9 @@ class SAI:
         if cfg.ca == "none":
             return self._write_raw(path, data)
         stats = WriteStats(total_bytes=len(data))
-        t0 = time.perf_counter()
-        bounds = self._boundaries(data)
-        chunks = chunking.split_chunks(data, bounds)
-        t1 = time.perf_counter()
+        chunks = chunking.split_chunks(data, self._boundaries(data))
         digests = self._submit_hash(chunks).wait()
-        t2 = t1 if cfg.hasher == "infinite" else time.perf_counter()
-        self._store_chunks(path, len(data), chunks, digests, stats)
-        t3 = time.perf_counter()
-        stats.stage_s = {"chunk": t1 - t0, "hash": t2 - t1,
-                         "store": t3 - t2}
-        return stats
+        return self._store_chunks(path, len(data), chunks, digests, stats)
 
     def write_async(self, path: str, data: bytes,
                     trace: Optional[Trace] = None) -> WriteFuture:
@@ -543,12 +594,14 @@ class SAI:
         versioning is identical to sequential sync writes.
 
         ``trace`` (an ``obs.Trace``) rides the pipeline queues and
-        collects sai/chunk, sai/hash, sai/store, engine queue/launch,
-        and wal/commit spans."""
+        collects sai/queue, sai/chunk, sai/hash and sai/store spans,
+        their stages, the engine's and wal/commit (docs/TRACING_TORCH.md
+        has the tree)."""
+        t_queued = time.perf_counter() if trace is not None else 0.0
         fut = WriteFuture()
         with self._pipe_lock:
             self._ensure_pipeline()
-            self._chunk_q.put((fut, path, bytes(data), trace))  # ra: disable=RA04(unbounded queue: put cannot block; hoisting it would race close)
+            self._chunk_q.put((fut, path, bytes(data), trace, t_queued))  # ra: disable=RA04(unbounded queue: put cannot block; hoisting it would race close)
         return fut
 
     def flush(self):
@@ -617,24 +670,28 @@ class SAI:
                 chunk_q.task_done()
                 return                   # heartbeat stays parked
             hb.beat()
-            fut, path, data, trace = item
+            fut, path, data, trace, t_queued = item
+            t0 = time.perf_counter()
+            if trace is not None:
+                trace.add_span("sai/queue", t_queued, t0)
             # per-path lane: commits for one path stay FIFO while
             # different paths commit on parallel lanes
             store_q = store_qs[hash(path) % len(store_qs)]
             try:
                 if self.cfg.ca == "none":
-                    store_q.put((fut, path, data, None, None, {}, trace))
+                    store_q.put((fut, path, data, None, None, 0.0, trace))
                     continue
-                t0 = time.perf_counter()
-                bounds = self._boundaries(data)
+                bounds = self._boundaries(data, trace)
+                t_split = time.perf_counter()
                 chunks = chunking.split_chunks(data, bounds)
                 t1 = time.perf_counter()
                 if trace is not None:
+                    trace.add_span("sai/chunk/split", t_split, t1,
+                                   "sai/chunk", chunks=len(chunks))
                     trace.add_span("sai/chunk", t0, t1,
                                    chunks=len(chunks))
-                handle = self._submit_hash(chunks)   # non-blocking (gpu)
-                store_q.put((fut, path, data, chunks, handle,
-                             {"chunk": t1 - t0, "t_hash0": t1}, trace))
+                handle = self._submit_hash(chunks, trace)  # non-blocking (gpu)
+                store_q.put((fut, path, data, chunks, handle, t1, trace))
             except BaseException as e:
                 fut._fail(e)
             finally:
@@ -649,7 +706,7 @@ class SAI:
                 store_q.task_done()
                 return
             hb.beat()
-            fut, path, data, chunks, handle, times, trace = item
+            fut, path, data, chunks, handle, t_hash0, trace = item
             try:
                 if handle is None:                   # ca='none'
                     fut._resolve(self._write_raw(path, data))
@@ -658,17 +715,12 @@ class SAI:
                 digests = handle.wait()
                 t2 = time.perf_counter()
                 if trace is not None:
-                    trace.add_span("sai/hash", times["t_hash0"], t2)
-                    _trace_engine_jobs(trace, handle)
+                    trace.add_span("sai/hash", t_hash0, t2)
+                    _trace_engine_jobs(trace, handle, "sai/hash")
                 self._store_chunks(path, len(data), chunks, digests,
                                    stats, trace=trace)
-                t3 = time.perf_counter()
                 if trace is not None:
-                    trace.add_span("sai/store", t2, t3)
-                hash_s = 0.0 if self.cfg.hasher == "infinite" \
-                    else t2 - times["t_hash0"]
-                stats.stage_s = {"chunk": times["chunk"],
-                                 "hash": hash_s, "store": t3 - t2}
+                    trace.add_span("sai/store", t2, time.perf_counter())
                 fut._resolve(stats)
             except BaseException as e:
                 fut._fail(e)
@@ -941,7 +993,8 @@ class SAI:
         The verify stage of read i (waiting on the engine digest) overlaps
         the fetch stage of read i+1, and verify requests from concurrent
         readers coalesce into common batch launches through the shared
-        engine.  ``trace`` collects sai/fetch + sai/verify spans."""
+        engine.  ``trace`` collects sai/fetch, sai/verify/submit,
+        sai/verify (with its engine spans) and sai/assemble spans."""
         fut = ReadFuture()
         with self._pipe_lock:
             self._ensure_read_pipeline()
@@ -986,8 +1039,12 @@ class SAI:
                     trace.add_span("sai/fetch", t0, time.perf_counter(),
                                    blocks=len(fv.blocks))
                 if verify:
+                    t1 = time.perf_counter()
                     handles, idxs = self._submit_verify(fv.blocks, datas,
                                                         srcs)
+                    if trace is not None:
+                        trace.add_span("sai/verify/submit", t1,
+                                       time.perf_counter())
                 else:
                     handles, idxs = None, []
                 verify_q.put((fut, fv, datas, srcs, handles, idxs,
@@ -1016,8 +1073,12 @@ class SAI:
                         trace.add_span("sai/verify", t0,
                                        time.perf_counter())
                         for h in handles:
-                            _trace_engine_jobs(trace, h)
-                fut._resolve(b"".join(datas)[:fv.total_len])
+                            _trace_engine_jobs(trace, h, "sai/verify")
+                t0 = time.perf_counter()
+                data = b"".join(datas)[:fv.total_len]
+                if trace is not None:
+                    trace.add_span("sai/assemble", t0, time.perf_counter())
+                fut._resolve(data)
             except BaseException as e:
                 fut._fail(e)
             finally:

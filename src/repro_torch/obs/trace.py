@@ -3,10 +3,13 @@
 A ``Trace`` is minted when a request with a nonzero trace id (packed
 into the request frame header by ``GatewayClient._rpc``) is admitted,
 and spans are attached as the request crosses layers: transport
-decode, WDRR queue wait, SAI chunk/hash/store, engine queue/launch
-(per device, per lane), WAL group-commit fsync.  Span producers run on
-different threads (scheduler, pipeline stages, manager threads), so
-``add_span`` takes the per-trace lock.
+decode, WDRR queue wait, SAI queue/chunk/hash/store and their stages,
+engine queue/launch/stage/wait/finish (per device, per lane), WAL
+group-commit fsync.  Each span names the span that caused it
+(``parent``), so the tree is rebuilt without guessing from intervals
+(the tree: docs/TRACING_TORCH.md).
+Span producers run on different threads (scheduler, pipeline stages,
+manager threads), so ``add_span`` takes the per-trace lock.
 
 Completed traces land in ``Tracer``'s bounded ring (``capacity``
 newest survive); traces slower than ``slow_threshold_s`` additionally
@@ -26,13 +29,19 @@ from typing import Dict, List, Optional
 
 
 class Span:
-    __slots__ = ("name", "t0", "t1", "meta")
+    """One timed stage of a request.  ``parent`` names the span that
+    caused it (None at the top of the request's tree); spans of one
+    request share their ``Trace``'s ``trace_id``."""
+    __slots__ = ("name", "t0", "t1", "meta", "parent")
 
-    def __init__(self, name: str, t0: float, t1: float, meta: Optional[Dict] = None) -> None:
+    def __init__(self, name: str, t0: float, t1: float,
+                 meta: Optional[Dict] = None,
+                 parent: Optional[str] = None) -> None:
         self.name = name
         self.t0 = t0
         self.t1 = t1
         self.meta = meta or {}
+        self.parent = parent
 
     @property
     def duration_s(self) -> float:
@@ -41,6 +50,8 @@ class Span:
     def to_dict(self) -> Dict:
         d = {"name": self.name, "t0": self.t0, "t1": self.t1,
              "duration_s": self.t1 - self.t0}
+        if self.parent is not None:
+            d["parent"] = self.parent
         if self.meta:
             d["meta"] = dict(self.meta)
         return d
@@ -59,8 +70,9 @@ class Trace:
         self.spans: List[Span] = []
         self._lock = threading.Lock()
 
-    def add_span(self, name: str, t0: float, t1: float, **meta) -> Span:
-        span = Span(name, t0, t1, meta or None)
+    def add_span(self, name: str, t0: float, t1: float,
+                 parent: Optional[str] = None, **meta) -> Span:
+        span = Span(name, t0, t1, meta or None, parent)
         with self._lock:
             self.spans.append(span)
         return span

@@ -98,7 +98,9 @@ def test_ablations_equivalent_results(rng, reuse, overlap):
         job = c.submit("sliding", buf, {"window": 48, "stride": 4})
         np.testing.assert_array_equal(
             job.wait(), jops.sliding_window_hash(buf.tobytes(), 48, 4))
-        assert set(job.timings) == {"in", "kernel", "out"}
+        # the launch's stage stamps, in the order the host passes them
+        assert 0.0 < job.t_submit <= job.t_exec0 <= job.t_staged \
+            <= job.t_waited <= job.t_exec1
     finally:
         c.shutdown()
 

@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import CrystalGPU, SAIConfig, make_store
-from repro_torch.obs import (Histogram, MetricsRegistry, Tracer,
+from repro_torch.core import SAI, CrystalGPU, SAIConfig, make_store
+from repro_torch.obs import (Histogram, MetricsRegistry, Trace, Tracer,
                              dump_slow_log, flatten, prometheus_text)
 from repro_torch.serve.storage_client import GatewayClient
 from repro_torch.serve.storage_service import (GatewayConfig, StorageGateway,
@@ -195,6 +195,48 @@ def test_tracer_ring_is_bounded():
     assert len(tr.slow_entries()) <= 64
 
 
+def test_span_names_its_cause():
+    t = Trace(5, "write")
+    top = t.add_span("sai/hash", 1.0, 3.0)
+    child = t.add_span("sai/hash/pack", 1.0, 2.0, "sai/hash", rows=4)
+    assert top.parent is None and "parent" not in top.to_dict()
+    d = child.to_dict()
+    assert d["parent"] == "sai/hash" and d["meta"] == {"rows": 4}
+    assert [s["name"] for s in t.to_dict()["spans"]] == ["sai/hash",
+                                                         "sai/hash/pack"]
+
+
+def test_traced_read_yields_submit_and_assemble(rng):
+    """A traced verified read: the verify's packing and submission
+    (``sai/verify/submit``, on the fetch thread, between ``sai/fetch``
+    and ``sai/verify``) and the join of the blocks (``sai/assemble``),
+    with the verify jobs' engine spans caused by ``sai/verify``."""
+    eng = CrystalGPU(devices=[CPU])
+    mgr, _ = make_store(3, replication=2)
+    sai = SAI(mgr, _sai_cfg(), crystal=eng)
+    try:
+        data = rng.integers(0, 256, 3 * 4096 + 100, dtype=np.uint8).tobytes()
+        sai.write("/r", data)
+        tr = Trace(1, "read")
+        assert sai.read_async("/r", trace=tr).result(timeout=120) == data
+        plain = Trace(2, "read")
+        assert sai.read_async("/r", verify=False, trace=plain).result(
+            timeout=120) == data
+    finally:
+        sai.close()
+        eng.shutdown()
+    by = {s.name: s for s in tr.spans}
+    assert {"sai/fetch", "sai/verify/submit", "sai/verify",
+            "sai/assemble", "engine/queue", "engine/launch", "engine/stage",
+            "engine/wait", "engine/finish"} == set(by)
+    assert by["sai/fetch"].t1 <= by["sai/verify/submit"].t0 \
+        <= by["sai/verify/submit"].t1 <= by["sai/verify"].t0 \
+        <= by["sai/verify"].t1 <= by["sai/assemble"].t0
+    assert {s.parent for s in tr.spans if s.name.startswith("engine/")} \
+        == {"sai/verify"}
+    assert {s.name for s in plain.spans} == {"sai/fetch", "sai/assemble"}
+
+
 # ----------------------------------------------------------------------
 # trace-id propagation on the wire
 # ----------------------------------------------------------------------
@@ -272,6 +314,11 @@ def test_socket_write_yields_stats_and_span_tree(tmp_path, rng):
         assert order == sorted(order)
         launch = by_name["engine/launch"][0]
         assert "device" in launch.meta and "lane" in launch.meta
+        # the durable store's fsync wait lies in the block-map commit
+        (commit,) = by_name["sai/store/commit"]
+        (wal,) = by_name["wal/commit"]
+        assert wal.parent == "sai/store/commit"
+        assert commit.t0 <= wal.t0 <= wal.t1 <= commit.t1
 
         # the read trace covers the fetch/verify path
         reads = [t for t in gw.tracer.completed() if t.name == "read"]

@@ -142,6 +142,97 @@ def test_hasher_alias_and_gear_gate(series, engines):
         rcpu._boundaries(series[1])
 
 
+# the spans a traced write makes under every mode, and those of CDC
+WRITE_SPANS = {"sai/queue", "sai/chunk", "sai/chunk/split", "sai/hash",
+               "sai/hash/pack", "engine/queue", "engine/launch",
+               "engine/stage", "engine/wait", "engine/finish", "sai/store",
+               "sai/store/claim", "sai/store/put", "sai/store/commit",
+               "sai/store/unpin"}
+CDC_SPANS = {"sai/chunk/slide", "sai/chunk/scan"}
+TOP_SPANS = {"sai/queue", "sai/chunk", "sai/hash", "sai/store"}
+
+
+@pytest.mark.parametrize("ca", ["fixed", "cdc"])
+def test_traced_write_span_tree(series, ca):
+    """A traced ``write_async`` yields every span of its mode, one
+    ``sai/queue``, ``sai/chunk``, ``sai/hash`` and ``sai/store`` a write,
+    each child inside its parent's interval and naming it, and the
+    engine's queue and launch once a hash job and never for the window
+    hashes.  A small shard threshold splits each write's hash into
+    several packed groups."""
+    from repro_torch.obs import Trace
+    eng = core.CrystalGPU(devices=[CPU], shard_min_bytes=8 << 10)
+    mgr, _ = core.make_store(4, replication=2)
+    sai = core.SAI(mgr, core.SAIConfig(ca=ca, **SMALL), crystal=eng)
+    handles = []
+    submit = sai._submit_hash
+
+    def spy(chunks, trace=None):
+        handles.append(submit(chunks, trace))
+        return handles[-1]
+    sai._submit_hash = spy
+    traces = []
+    try:
+        for v, img in enumerate(series[:2]):
+            traces.append(Trace(v + 1, "write"))
+            sai.write_async("/ckpt", img, trace=traces[-1]).result(
+                timeout=300)
+    finally:
+        sai.close()
+        eng.shutdown()
+    for tr, handle, img in zip(traces, handles, series):
+        jobs = len(handle._jobs)
+        assert jobs > 1
+        by = {}
+        for s in tr.spans:
+            by.setdefault(s.name, []).append(s)
+        assert set(by) == WRITE_SPANS | (CDC_SPANS if ca == "cdc" else set())
+        for name in TOP_SPANS | CDC_SPANS | {
+                "sai/chunk/split", "sai/store/claim", "sai/store/put",
+                "sai/store/commit", "sai/store/unpin"}:
+            assert len(by.get(name, [None])) == 1, name
+        for name in ("sai/hash/pack", "engine/queue", "engine/launch"):
+            assert len(by[name]) == jobs, name
+        slide = 1 if ca == "cdc" else 0
+        for name in ("engine/stage", "engine/wait", "engine/finish"):
+            assert len(by[name]) == jobs + slide, name
+            assert sum(s.parent == "sai/chunk/slide"
+                       for s in by[name]) == slide
+        assert {s.parent for s in by["engine/launch"]} == {"sai/hash"}
+        for s in tr.spans:
+            if s.name in TOP_SPANS:
+                assert s.parent is None, s.name
+                continue
+            (up,) = by[s.parent]
+            assert up.t0 <= s.t0 <= s.t1 <= up.t1, (s.name, s.parent)
+        packs = by["sai/hash/pack"]
+        assert sum(p.meta["rows"] for p in packs) == \
+            by["sai/chunk"][0].meta["chunks"]
+        if ca == "cdc":
+            scan = by["sai/chunk/scan"][0].meta
+            assert scan["chunks"] == by["sai/chunk"][0].meta["chunks"]
+        # the store's children share their stamps: nothing between them
+        claim, put, commit = (by[n][0] for n in (
+            "sai/store/claim", "sai/store/put", "sai/store/commit"))
+        assert claim.t1 == put.t0 and put.t1 == commit.t0
+        assert commit.t1 <= by["sai/store/unpin"][0].t0
+        stage, wait, finish = (sorted(by[n], key=lambda s: s.t0)
+                               for n in ("engine/stage", "engine/wait",
+                                         "engine/finish"))
+        for a, b, c in zip(stage, wait, finish):
+            assert a.t1 == b.t0 and b.t1 == c.t0
+
+
+def test_config_refuses_a_hasher_the_port_lacks():
+    """The port hashes with 'gpu' (alias 'tpu') or 'cpu'; the JAX
+    package's CA-Infinite oracle ('infinite') has no counterpart here."""
+    for hasher in ("gpu", "tpu", "cpu"):
+        assert core.SAIConfig(hasher=hasher).hasher == hasher
+    for hasher in ("infinite", "md5"):
+        with pytest.raises(ValueError, match="infinite|CA-Infinite"):
+            core.SAIConfig(hasher=hasher)
+
+
 @pytest.mark.parametrize("writer", ["reference", "port"])
 def test_durable_store_recovers_across_packages(tmp_path, series, engines,
                                                 writer):
