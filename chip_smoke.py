@@ -21,7 +21,10 @@ each printing its results:
    stride), flash attention within 2e-5 in f32 (also on rows of 16384
    and 32768 keys) and within the bound derived from its rounding in
    bf16 and f16, which the plain version with one key tile dropped must
-   fail, and the f32 kernel's TF32 pre-pass bit for bit;
+   fail, and the f32 kernel's TF32 pre-pass bit for bit; the boundary-
+   candidate kernel index for index and count for count on a 256 MiB
+   image's window hashes at strides 1 and 4 and on gear rows over stale
+   bytes, under sparse and every-window rules;
 4. the main path, the SAI content-addressable write/read path: a series
    of four 256 MiB checkpoint images written with ``write_async`` and read
    back with verification, under fixed 1 MiB blocks (``ca='fixed'``),
@@ -31,7 +34,10 @@ each printing its results:
    (``ca='cdc-gear'``), with the kernels' launch counts over exactly that
    run and each configuration's similarities held to their known values;
    sliding hashes of one image against ``hashlib`` at both strides and
-   gear chunk boundaries of one image against the CPU baseline; then a
+   gear chunk boundaries of one image against the CPU baseline, and the
+   SAI's boundaries from the card's candidates against those selected
+   from every hash (boundary-candidate launches: under every CDC mode,
+   never under ``ca='fixed'``); then a
    refetch of a corrupted replica and a durable store reopened and read;
 5. the checkpoint path: ``CACheckpointer`` saving two decoder layers of
    llama3-8b's published widths in bf16 from the card through
@@ -40,7 +46,9 @@ each printing its results:
    restored after a storage-node failure and compared tensor for tensor,
    and an ``async_save`` raced by an in-place update;
 6. each kernel at its path's shapes (the sliding kernel at both of its
-   strides, gear on one image and on phase 4's largest launch, flash
+   strides, gear on one image and on phase 4's largest launch, the
+   boundary-candidate compaction of that image's stride-1 hashes beside
+   the host path it replaced, flash
    attention through its own entry point at llama3-8b's widths and
    context in bf16, f16 and f32): its time with CUDA events beside its
    bound (for ``md5_direct`` also the bound of its serial chain, from the
@@ -173,6 +181,9 @@ N_IMAGES = 4
 IMAGE_BYTES = 256 * MiB
 DURABLE_BYTES = 64 * MiB
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+# the chunking rule's mean chunk of the benchmark's CDC writes
+# (perfbench's cas-cdc configuration): one candidate per 8 KiB
+BENCH_AVG_CHUNK = 8192
 # dense peaks, H100 SXM data sheet: bf16 and TF32 on the tensor cores
 # (the flash kernels' wgmma), and f32 on the CUDA cores (outside the
 # tensor cores).  An f32-accurate product costs either one f32 FMA or
@@ -535,6 +546,58 @@ def phase_build(torch):
     return pipes, cycles_per_round
 
 
+def candidates_match(torch, np, dev) -> int:
+    """The boundary-candidate kernel against its plain version, index for
+    index and count for count, on the write path's window hashes: one
+    256 MiB image at window 48, stride 1 ([1, 4, 64M]) and stride 4
+    ([1, 1, 64M]), and gear's [B, 1, L] rows of ragged lengths over
+    stale bytes past each row's end; under the benchmark's 8 KiB rule,
+    the SAI's default rule, and a rule that every window meets, with each
+    row's n_off also cut short of its plane.  Returns the largest
+    difference (0: every check is exact)."""
+    from repro_torch.core import SAIConfig, chunking
+    from repro_torch.kernels import candidates, gear, sliding_md5
+    rules = {"8 KiB": chunking.boundary_rule(BENCH_AVG_CHUNK),
+             "SAI default": chunking.boundary_rule(SAIConfig().avg_chunk),
+             "every window": (0, 0)}
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def same(hashes, n_off, what):
+        for rule, (mask, magic) in rules.items():
+            found, counts = candidates.boundary_candidates(hashes, n_off,
+                                                           mask, magic)
+            want, want_counts = candidates.candidates_plain(hashes, n_off,
+                                                            mask, magic)
+            check(torch.equal(found, want)
+                  and counts.tolist() == want_counts.tolist(),
+                  f"boundary_candidates == plain, {what}, rule {rule}")
+            print(f"boundary_candidates {what}, n_off {list(n_off)}, rule "
+                  f"{rule}: {found.numel()} candidates, counts "
+                  f"{counts.tolist()}, exact vs plain")
+            del found, want
+
+    words = torch.randint(-2 ** 31, 2 ** 31, (1, IMAGE_BYTES // 4),
+                          dtype=torch.int32, device=dev, generator=gen)
+    for stride in (1, 4):
+        hashes = sliding_md5.sliding_md5_words(words, 12, stride)
+        n_off = (IMAGE_BYTES - 48) // stride + 1
+        what = (f"{list(hashes.shape)} ({IMAGE_BYTES // MiB} MiB at "
+                f"stride {stride})")
+        same(hashes, [n_off], what)
+        same(hashes, [n_off - 12345], what)
+        del hashes
+    del words
+    # gear rows as the engine fuses them: the bytes past each row's
+    # length are stale (random), not zero
+    lens = [1, 31, 4097, 16 * MiB + 3]
+    rows = torch.randint(0, 256, (len(lens), max(lens)), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    hashes = gear.gear_bytes(rows)[:, None]
+    same(hashes, lens, f"gear {list(hashes.shape)}")
+    del hashes, rows
+    return 0
+
+
 def phase_kernels(torch, np, dev):
     print("== phase 3: kernels against their plain versions")
     from repro_torch.core.sai import _cpu_gear
@@ -656,6 +719,7 @@ def phase_kernels(torch, np, dev):
     check(np.array_equal(np.concatenate(parts), host[-1]),
           "sharded gear plan reassembles the unsharded output")
     print(f"gear shard plan {plan}: reassembled == unsharded")
+    errs["boundary_candidates"] = candidates_match(torch, np, dev)
     # flash: hd 32, 64 and 128, S == Sk, both Sk != S and a ragged pair,
     # in f32, bf16 and f16; the plain version runs on the same (rounded)
     # inputs.  In bf16 and f16 the plain version with one key tile dropped
@@ -771,13 +835,14 @@ def block_maps(mgr, n_versions: int):
 
 def phase_main_path(torch, np, series, smi: str):
     print("== phase 4: main path (SAI write/read through CrystalGPU)")
-    from repro_torch.core import SAI, CrystalGPU, SAIConfig
-    from repro_torch.kernels import gear, md5, sliding_md5
+    from repro_torch.core import SAI, CrystalGPU, SAIConfig, chunking
+    from repro_torch.kernels import candidates, gear, md5, sliding_md5
     eng = CrystalGPU()
     check([str(d) for d in eng.devices] == ["cuda:0"],
           f"engine on cuda:0, got {eng.devices}")
     counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
-                "gear": gear.LAUNCHES}
+                "gear": gear.LAUNCHES,
+                "boundary_candidates": candidates.LAUNCHES}
     kept = {}
     try:
         for c in counters.values():
@@ -813,6 +878,11 @@ def phase_main_path(torch, np, series, smi: str):
               "gear kernel runs under ca='cdc-gear' only, md5 beside it")
         check(largest[0] == 1 or largest_bytes <= eng.max_fused_bytes,
               "the fusion byte cap bounds fused gear launches")
+        check(per["fixed"]["boundary_candidates"] == 0
+              and all(per[ca]["boundary_candidates"] > 0
+                      for ca in ("cdc", "cdc-stride1", "cdc-gear")),
+              "boundary candidates are compacted on the card under every "
+              "CDC mode, never under ca='fixed'")
         fixed = kept["fixed"][3]["similarity"]
         for ca in ("cdc-stride1", "cdc-gear"):
             sim = kept[ca][3]["similarity"]
@@ -855,6 +925,19 @@ def phase_main_path(torch, np, series, smi: str):
                       f"stride {stride}")
             print(f"sliding hashes of image 2 at stride {stride} match "
                   f"hashlib at {len(offs)} sampled offsets")
+            # the SAI's boundaries come from candidates tested and
+            # compacted on the card: the same as from every hash
+            csai = kept["cdc" if stride == 4 else "cdc-stride1"][0]
+            cfg = csai.cfg
+            whole = chunking.select_boundaries(
+                hashes, img.size, window=48, stride=stride,
+                avg_chunk=cfg.avg_chunk, min_chunk=cfg.min_chunk,
+                max_chunk=cfg.max_chunk)
+            check(csai._boundaries(series[1]) == whole,
+                  f"stride {stride}: boundaries from the engine's "
+                  f"candidates == select_boundaries over every hash")
+            print(f"stride {stride}: {len(whole)} chunk boundaries of "
+                  f"image 2 from candidates == from every hash")
             del hashes
 
         # corrupt one replica of one block: the read refetches
@@ -1037,7 +1120,10 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
                 gear_largest):
     print("== phase 6: kernels at their paths' shapes: times (CUDA "
           "events, L2 flushed) and checks against the plain versions")
-    from repro_torch.kernels import flash_attn, gear, md5, sliding_md5
+    from repro_torch.core import chunking
+    from repro_torch.kernels import (candidates, flash_attn, gear, md5,
+                                     sliding_md5)
+    from repro_torch.kernels.ops import sliding_finish
     flush = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -1153,6 +1239,54 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
             out["sliding_md5"] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "shape": shape, "library_ms": None}
+    # boundary candidates of the same image's stride-1 hashes (1 GiB)
+    # under the benchmark's 8 KiB rule: the whole wrapper (both passes and
+    # the read of the total between them), against its plain version and
+    # the host path it replaced (the hashes copied to pinned memory, the
+    # phase interleave and the rule's scan); bound: the hashes read once
+    hashes = sliding_md5.sliding_md5_words(swords, ww, 1)
+    n_off = IMAGE_BYTES - 48 + 1
+    mask, magic = chunking.boundary_rule(BENCH_AVG_CHUNK)
+    ms = time_cuda(lambda: candidates.boundary_candidates(
+        hashes, [n_off], mask, magic), flush)
+    found, counts = candidates.boundary_candidates(hashes, [n_off], mask,
+                                                   magic)
+    want = {}
+    plain_ms = time_cuda(lambda: want.setdefault(
+        "v", candidates.candidates_plain(hashes, [n_off], mask, magic)),
+        flush, repeats=1, warmup=0)
+    check(torch.equal(found, want["v"][0])
+          and counts.tolist() == want["v"][1].tolist(),
+          "boundary_candidates == plain at the main path's shape")
+    del want
+    pinned = torch.empty(hashes.shape, dtype=torch.int32, pin_memory=True)
+
+    def host_path():
+        pinned.copy_(hashes.view(torch.int32))
+        inter = sliding_finish(pinned[0].numpy().view(np.uint32),
+                                   sliding_md5.phases_for(1), n_off)
+        return np.nonzero((inter & mask) == magic)[0]
+
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        on_host = host_path()
+        host_s.append(time.perf_counter() - t0)
+    check(np.array_equal(found.cpu().numpy(), on_host),
+          "boundary_candidates == the host's interleave and scan")
+    b_ms = 4 * n_off / HBM_BYTES_PER_S * 1e3
+    shape = (f"[1, 4, {L}] uint32 (stride-1 hashes of "
+             f"{IMAGE_BYTES // MiB} MiB), {found.numel()} candidates")
+    print(f"boundary_candidates: {ms:.3f} ms at {shape}; bound "
+          f"{b_ms:.4f} ms (bytes: {4 * n_off} B of hashes read once at "
+          f"3.35 TB/s), {b_ms / ms:.1%} of it; plain {plain_ms:.1f} ms, "
+          f"exact; the host path it replaced "
+          f"{1e3 * statistics.median(host_s):.1f} ms; library: none (no "
+          f"PyTorch call compacts a masked test in one pass)")
+    out["boundary_candidates"] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+        "shape": shape, "library_ms": None}
+    del hashes, found, pinned, on_host
     del swords
     # gear: one 256 MiB image, and phase 4's largest launch
     for label, shape in (("one image", (1, IMAGE_BYTES)),
@@ -3245,6 +3379,8 @@ def main() -> int:
              "src/repro/kernels/sliding_md5.py:56"),
             ("gear", "gear", "src/repro_torch/kernels/csrc/gear.cu",
              "src/repro/kernels/gear.py:134"),
+            ("boundary_candidates", "boundary_candidates",
+             "src/repro_torch/kernels/csrc/candidates.cu", "none"),
             ("flash_attn", "flash_attn",
              "src/repro_torch/kernels/csrc/flash_attn_wgmma.cu",
              "src/repro/kernels/flash_attn.py:74"),

@@ -82,9 +82,9 @@ Each manager owns one CUDA stream and hands it to every copy and kernel
 it issues, so managers never serialise on a default stream.  Hosts fill
 reused pinned staging buffers (the paper's buffer reuse), copy them to
 the card on the manager's stream, launch the kernel there, and pull back
-only the digests or window hashes.  With ``overlap=False`` the manager
-synchronises its stream after every stage, mirroring the paper's staged
-Table-1 execution.
+only the digests, window hashes or boundary candidates.  With
+``overlap=False`` the manager synchronises its stream after every stage,
+mirroring the paper's staged Table-1 execution.
 
 Job normal forms
 ----------------
@@ -104,6 +104,16 @@ Job normal forms
               version fails the job); result [len] uint32 rolling hash.
               Stream rows are zero-padded at the end, and the gear hash
               is causal, so the padding changes no kept output.
+  boundary candidates: a 'sliding' or 'gear' job whose meta also holds
+              'mask' (and 'magic', default 0) returns instead the
+              ascending int64 indices of the windows whose hash h has
+              ``h & mask == magic`` (gear: byte positions).  The rule is
+              tested and its hits compacted on the card
+              (``candidates.boundary_candidates``), so only the
+              candidates come back to the host, not every hash.  Such
+              jobs fuse only with jobs of the same kind, settings and
+              rule; ``boundary_jobs`` and ``boundary_candidates`` count
+              them and what they returned.
 """
 from __future__ import annotations
 
@@ -119,7 +129,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import gear, md5, ops, sliding_md5
+from repro_torch.kernels import candidates, gear, md5, ops, sliding_md5
 from repro_torch.obs import HeartbeatBoard
 from repro_torch.obs import metrics as metrics_mod
 from repro_torch.roofline.analysis import HASH_OPS_PER_BYTE, hash_cost_seed
@@ -260,6 +270,15 @@ def _normalize_direct(data: np.ndarray, meta: Dict[str, Any]):
     tail = flat.size - (n - 1) * seg
     lens[-1] = (tail + 3) // 4 * 4
     return rows, lens
+
+
+def _candidate_rule(meta: Dict[str, Any]) -> tuple:
+    """``("candidates", mask, magic)`` for a stream job that asks for its
+    boundary candidates (meta 'mask', 'magic'), else ``()``; it ends the
+    job's fuse key."""
+    if "mask" not in meta:
+        return ()
+    return ("candidates", int(meta["mask"]), int(meta.get("magic", 0)))
 
 
 # kind -> (sec_per_byte, launch_overhead_s): the cost model's start, the
@@ -515,7 +534,8 @@ class CrystalGPU:
       coalesce:          fuse queued same-fuse-key jobs into one batch
                          launch — 'direct' with 'direct', 'sliding' with
                          identical window/stride, 'gear' with the same
-                         version (stream jobs
+                         version, each with the same boundary rule or
+                         none (stream jobs
                          additionally only fuse within the
                          same buffer-size octave class, so a tiny CDC
                          job never pads out to a huge neighbour)
@@ -597,7 +617,8 @@ class CrystalGPU:
         self.stats = self.metrics.group(
             ("jobs", "bytes", "launches", "coalesced", "max_fused",
              "scrub_jobs", "scrub_launches", "scrub_coalesced",
-             "sharded_jobs", "shards", "manager_restarts"))
+             "sharded_jobs", "shards", "manager_restarts",
+             "boundary_jobs", "boundary_candidates"))
         # test hooks: _fault_hook(dev_index, batch) runs after a batch is
         # drained but OUTSIDE the launch try (an exception there kills
         # the manager thread -> crash-recovery path); _launch_hook runs
@@ -687,6 +708,7 @@ class CrystalGPU:
             else:
                 job.fuse_key = ("gear", int(job.meta.get("version", 1)),
                                 octave)
+            job.fuse_key += _candidate_rule(job.meta)
             n_words = (max(job.data.size, 1) + 3) // 4
             job.staged_width = 4 << (max(n_words, 4) - 1).bit_length()
         else:
@@ -767,7 +789,6 @@ class CrystalGPU:
         into the parent's result in submission order."""
         k = len(plan)
         results: List[Optional[Job]] = [None] * k
-        drops = [spec[3] for spec in plan]
         state_lock = threading.Lock()
         remaining = [k]
 
@@ -778,7 +799,7 @@ class CrystalGPU:
                     remaining[0] -= 1
                     last = remaining[0] == 0
                 if last:
-                    self._assemble_shards(parent, results, drops)
+                    self._assemble_shards(parent, results, plan)
             return cb
 
         flat = None if parent.kind == "direct" \
@@ -802,7 +823,10 @@ class CrystalGPU:
             self._dispatch(child, spread=True)
         return parent
 
-    def _assemble_shards(self, parent: Job, results: List[Job], drops):
+    def _assemble_shards(self, parent: Job, results: List[Job], plan):
+        """Join the children's results in plan order: a stream shard
+        drops its first ``n_drop`` outputs (gear's left context), and a
+        candidate shard's window indices move by its first window's."""
         err = next((c.error for c in results if c.error is not None),
                    None)
         if err is not None:
@@ -812,9 +836,16 @@ class CrystalGPU:
                 if parent.kind == "direct":
                     parent.result = np.concatenate(
                         [c.result for c in results], axis=0)
+                elif _candidate_rule(parent.meta):
+                    step = int(parent.meta.get("stride", 4)) \
+                        if parent.kind == "sliding" else 1
+                    parent.result = np.concatenate(
+                        [c.result[c.result >= d] + a // step
+                         for c, (_, a, _, d) in zip(results, plan)])
                 else:
                     parent.result = np.concatenate(
-                        [c.result[d:] for c, d in zip(results, drops)])
+                        [c.result[spec[3]:]
+                         for c, spec in zip(results, plan)])
             except BaseException as e:
                 parent.error = e
         # trace stamps span the union of the children's execution; a
@@ -930,7 +961,8 @@ class CrystalGPU:
     def _drain_batch(self, dev: _DeviceState, first: Job):
         """Greedy coalescing on one device's queue: pull queued jobs
         with ``first``'s fuse key behind it (direct with direct, sliding
-        with identical window/stride, gear with the same version).
+        with identical window/stride, gear with the same version, each
+        with the same boundary rule or none).
         Returns (batch, carry) where carry is a non-fusable job that was
         popped and must be executed next."""
         batch = [first]
@@ -1195,7 +1227,8 @@ class CrystalGPU:
         [B, L], so it stages and pulls exactly the burst's rows at the
         widest job's length.  Each job's hashes are sliced out of the
         fused output (phase-major [B, R, L/4] for sliding, per-byte
-        [B, L] for gear)."""
+        [B, L] for gear).  A candidate batch (see the module docstring)
+        tests the rule on the card and pulls only the candidates."""
         kind = batch[0].kind
         if kind not in ("sliding", "gear"):
             raise ValueError(f"unknown job kind {kind!r}")
@@ -1216,6 +1249,7 @@ class CrystalGPU:
         for i, f in enumerate(flats):
             rows_u8[i, :f.size] = f
         meta = batch[0].meta
+        rule = _candidate_rule(meta)
         with dev.on_device():
             dev_rows = staging.to(dev.device, non_blocking=True)
             self._stage_sync(dev)
@@ -1231,15 +1265,33 @@ class CrystalGPU:
                                       int(meta.get("version", 1)),
                                       stream=dev.stream)
             self._stage_sync(dev)
-            host = self._pull(slot, dev, out)
-        t_waited = time.perf_counter()
-        for i, j in enumerate(batch):
-            if kind == "sliding":
-                n_off = (lens[i] - window) // stride + 1
-                j.result = ops.sliding_finish(
-                    host[i], sliding_md5.phases_for(stride), n_off)
+            if rule:
+                if kind == "sliding":
+                    planes = out[:len(batch)]
+                    n_off = [(n - window) // stride + 1 for n in lens]
+                else:
+                    planes, n_off = out[:, None], lens
+                found, counts = candidates.boundary_candidates(
+                    planes, n_off, rule[1], rule[2], stream=dev.stream)
+                host = self._pull(slot, dev, found)
             else:
-                j.result = ops.gear_finish(host[i], lens[i])
+                host = self._pull(slot, dev, out)
+        t_waited = time.perf_counter()
+        if rule:
+            ends = np.cumsum(counts)
+            for j, n, end in zip(batch, counts, ends):
+                j.result = host[end - n:end].copy()
+            self.stats.inc("boundary_jobs", len(batch))
+            self.stats.inc("boundary_candidates", int(ends[-1]))
+        else:
+            for i, j in enumerate(batch):
+                if kind == "sliding":
+                    n_off = (lens[i] - window) // stride + 1
+                    j.result = ops.sliding_finish(
+                        host[i], sliding_md5.phases_for(stride), n_off)
+                else:
+                    j.result = ops.gear_finish(host[i], lens[i])
+        for j in batch:
             j.t_staged, j.t_waited = t_staged, t_waited   # batch-wide
         self._account(dev, len(batch), int(sum(lens)),
                       sum(j.lane == "scrub" for j in batch))

@@ -383,9 +383,13 @@ class SAI:
 
     def _boundaries(self, data: bytes,
                     trace: Optional[Trace] = None) -> List[int]:
-        """Chunk ends of ``data``.  For content-defined chunking
-        ``trace`` takes the window-hash job (sai/chunk/slide, with that
-        job's engine stages) and the boundary scan (sai/chunk/scan)."""
+        """Chunk ends of ``data``.  For content-defined chunking on the
+        engine, the window-hash job tests the boundary rule on the card
+        and returns only the candidate windows, which the host walks;
+        ``hasher='cpu'`` hashes every window on the host and selects
+        from all of them.  ``trace`` takes the window-hash job
+        (sai/chunk/slide, with that job's engine stages, the rule test
+        and compaction included) and the walk (sai/chunk/scan)."""
         cfg = self.cfg
         if len(data) == 0:
             return []
@@ -395,32 +399,29 @@ class SAI:
                     for i in range(n)]
         if cfg.ca not in ("cdc", "cdc-gear"):
             raise ValueError(self.cfg.ca)
+        if cfg.ca == "cdc":
+            kind, window, stride = "sliding", cfg.window, cfg.stride
+            meta = {"window": window, "stride": stride}
+        else:
+            kind, window, stride, meta = "gear", 1, 1, {}
+        sizes = dict(window=window, stride=stride, avg_chunk=cfg.avg_chunk,
+                     min_chunk=cfg.min_chunk, max_chunk=cfg.max_chunk)
         t0 = time.perf_counter()
         job = None
-        if cfg.ca == "cdc":
-            window, stride = cfg.window, cfg.stride
-            if cfg.hasher in ENGINE_HASHERS:
-                job = self.engine.submit(
-                    "sliding", np.frombuffer(data, np.uint8),
-                    {"window": cfg.window, "stride": cfg.stride},
-                    lane=cfg.lane)
-                hashes = job.wait()
-            else:
-                hashes = _cpu_sliding(data, cfg.window, cfg.stride)
+        if cfg.hasher in ENGINE_HASHERS:
+            mask, magic = chunking.boundary_rule(cfg.avg_chunk)
+            job = self.engine.submit(
+                kind, np.frombuffer(data, np.uint8),
+                {**meta, "mask": mask, "magic": magic}, lane=cfg.lane)
+            found = job.wait()
+            t1 = time.perf_counter()
+            bounds = chunking.boundaries_from_candidates(
+                found, len(data), **sizes)
         else:
-            window = stride = 1
-            if cfg.hasher in ENGINE_HASHERS:
-                job = self.engine.submit(
-                    "gear", np.frombuffer(data, np.uint8), {},
-                    lane=cfg.lane)
-                hashes = job.wait()
-            else:
-                hashes = _cpu_gear(data)
-        t1 = time.perf_counter()
-        bounds = chunking.select_boundaries(
-            hashes, len(data), window=window, stride=stride,
-            avg_chunk=cfg.avg_chunk, min_chunk=cfg.min_chunk,
-            max_chunk=cfg.max_chunk)
+            hashes = _cpu_sliding(data, window, stride) \
+                if kind == "sliding" else _cpu_gear(data)
+            t1 = time.perf_counter()
+            bounds = chunking.select_boundaries(hashes, len(data), **sizes)
         if trace is not None:
             trace.add_span("sai/chunk/slide", t0, t1, "sai/chunk",
                            bytes=len(data))

@@ -31,6 +31,7 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
 
 _c_void_p, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_c_uint = ctypes.c_uint
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "md5_direct_launch": [_c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll,
@@ -47,6 +48,10 @@ SIGNATURES = {
     "flash_attn_wgmma_f16_launch": [_c_void_p] * 4 + [_c_int] * 4
                                    + [ctypes.c_float, _c_void_p],
     "md5_chain_probe_launch": [_c_void_p, _c_ll, _c_int, _c_void_p],
+    "candidate_count_launch": [_c_void_p] * 3 + [_c_int] * 2
+                              + [_c_ll] * 2 + [_c_uint] * 2 + [_c_void_p],
+    "candidate_scatter_launch": [_c_void_p] * 5 + [_c_int] * 2
+                                + [_c_ll] * 2 + [_c_uint] * 2 + [_c_void_p],
 }
 
 
