@@ -2,14 +2,16 @@
 and the metrics.
 
 Everything a cell is made of is found by name: its configuration file
-(``BENCHMARK.json``'s ``configs[].file``), its traffic mix
-(``perfbench/traffic/<traffic>.json``) and each metric's reader
-(``perfbench/metrics/<name>.py``, else the file of the part of the name
-before its first dot).  ``run_cell`` takes the device as an argument, so
-the tests drive the same code on the CPU at small sizes.
+(``BENCHMARK.json``'s ``configs[].file``), its chunking rule's reference
+and device work (``perfbench/chunkers/<ca>.py``, ``reference.chunker``),
+its traffic mix (``perfbench/traffic/<traffic>.json``) and each metric's
+reader (``perfbench/metrics/<name>.py``, else the file of the part of the
+name before its first dot).  ``run_cell`` takes the device as an
+argument, so the tests drive the same code on the CPU at small sizes.
 """
 from __future__ import annotations
 
+import copy
 import gc
 import importlib.util
 import itertools
@@ -103,6 +105,8 @@ class Run:
     ops_done: int = 0                   # operations that succeeded
     bytes_done: int = 0
     spans: List = field(default_factory=list)    # (name, t0, t1)
+    # (name, t0, t1, parent, meta) of the same spans
+    span_records: List = field(default_factory=list)
     counters: Dict = field(default_factory=dict)  # engine before/after
     device: Optional[devtrace.DeviceTrace] = None
     work: Dict = field(default_factory=dict)     # kernel -> (ops, bytes)
@@ -145,8 +149,8 @@ class Program:
                    crystal=self.engine), mgr, nodes
 
     def stats(self) -> Dict:
-        s = self.engine.snapshot_stats()
-        return {k: s[k] for k in ("jobs", "launches", "coalesced")}
+        """A copy of the engine's whole ``snapshot_stats()``."""
+        return copy.deepcopy(self.engine.snapshot_stats())
 
     def close(self):
         self.engine.shutdown()
@@ -440,7 +444,10 @@ def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
         OUT.mkdir(parents=True, exist_ok=True)
         run.device = recorder.stop(
             str(OUT / f"trace-{workload}-{seed}.json"), run.t0, run.t1)
-    run.spans = [(s.name, s.t0, s.t1) for tr in traces for s in tr.spans]
+    spans = [s for tr in traces for s in tr.spans]
+    run.spans = [(s.name, s.t0, s.t1) for s in spans]
+    run.span_records = [(s.name, s.t0, s.t1, s.parent, dict(s.meta))
+                        for s in spans]
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     t = time.perf_counter()
     found = checker.close()
@@ -507,19 +514,19 @@ def _fetch_replica(nodes, nid: int, digest: bytes) -> Optional[bytes]:
 def _work(done, lens, series, sai: Dict, op: str) -> Dict:
     """Kernel -> (integer instructions, bytes) the window's successful
     operations asked of the card: every block's digest (written or
-    verified), and for content-defined chunking the window hashes of
-    every image written."""
-    work = {"md5_direct": [0.0, 0.0], "sliding_md5": [0.0, 0.0]}
+    verified), and for every image written what its chunking rule's
+    ``work`` gives (``reference.chunker``)."""
+    rule = reference.chunker(sai["ca"]) if op == "write" else None
+    work: Dict[str, List[float]] = {"md5_direct": [0.0, 0.0]}
     for d in done:
         if "error" in d:
             continue
         v = d["version"]
-        ops, nbytes = roofline.md5_direct_work(lens[v])
-        work["md5_direct"][0] += ops
-        work["md5_direct"][1] += nbytes
-        if op == "write" and sai["ca"] == "cdc":
-            ops, nbytes = roofline.sliding_work(series[v].size,
-                                                sai["window"], sai["stride"])
-            work["sliding_md5"][0] += ops
-            work["sliding_md5"][1] += nbytes
-    return {k: tuple(v) for k, v in work.items() if v[0] > 0}
+        parts = [("md5_direct", roofline.md5_direct_work(lens[v]))]
+        if rule is not None:
+            parts += rule.work(series[v].size, sai).items()
+        for name, (ops, nbytes) in parts:
+            acc = work.setdefault(name, [0.0, 0.0])
+            acc[0] += ops
+            acc[1] += nbytes
+    return {k: tuple(v) for k, v in work.items() if v[0] > 0 or v[1] > 0}

@@ -1,5 +1,6 @@
-"""``sai/chunk/scan`` in ms per write: the host's boundary scan over the
-window hashes (``chunking.select_boundaries``)."""
+"""``sai/chunk/scan`` in ms per write: the host's greedy walk over the
+boundary candidates that the card returned
+(``chunking.boundaries_from_candidates``)."""
 from perfbench.metrics._per_write import span_ms_per_write
 
 

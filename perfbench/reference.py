@@ -15,13 +15,19 @@ alone: it imports nothing of the program under test.
 - Dedup: a block is new when no earlier block of the same store had its
   digest.
 
+Each chunking rule (the configuration's ``sai.ca``) is found by name:
+``perfbench/chunkers/<ca>.py`` gives its chunk ends (``bounds``) and the
+device work it asks of one image (``work``), so a new rule is a new file.
+
 Values live in int64 tensors masked to 32 bits, so nothing relies on
 how a backend wraps a 32-bit overflow.
 """
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import math
+from pathlib import Path
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -35,6 +41,8 @@ SHIFTS = [7, 12, 17, 22] * 4 + [5, 9, 14, 20] * 4 \
 # window offsets hashed per step on the device (bounds the temporaries:
 # about ten int64 tensors of this length)
 BLOCK = 1 << 25
+# one file per chunking rule, named by the configuration's ``sai.ca``
+CHUNKERS = Path(__file__).resolve().parent / "chunkers"
 
 
 def message_word(i: int) -> int:
@@ -163,18 +171,26 @@ def block_digest(chunk) -> bytes:
                        + n.to_bytes(4, "little")).digest()
 
 
+def chunker(ca: str):
+    """The module of chunking rule ``ca``, ``CHUNKERS/<ca>.py``: its
+    ``bounds(image, sai, device)`` gives the chunk end offsets of one
+    image, its ``work(length, sai)`` the device work of chunking one
+    image of that length, ``{kernel: (integer instructions, bytes)}``."""
+    path = CHUNKERS / f"{ca}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no reference for ca={ca!r}: {path}")
+    name = "perfbench_chunker_" + "".join(
+        c if c.isalnum() else "_" for c in ca)
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def chunk_bounds(image: np.ndarray, sai: Dict, device) -> List[int]:
-    """Chunk end offsets of one image under the SAI settings ``sai``
-    (``ca`` 'fixed' or 'cdc')."""
-    if sai["ca"] == "fixed":
-        return fixed_boundaries(image.size, sai["block_size"])
-    if sai["ca"] != "cdc":
-        raise ValueError(f"no reference for ca={sai['ca']!r}")
-    data = torch.from_numpy(image).to(device)
-    cands = chunk_candidates(data, sai["window"], sai["stride"],
-                             sai["avg_chunk"])
-    return cdc_boundaries(cands, image.size, sai["min_chunk"],
-                          sai["max_chunk"])
+    """Chunk end offsets of one image under the SAI settings ``sai``, by
+    the rule that ``sai["ca"]`` names."""
+    return chunker(sai["ca"]).bounds(image, sai, device)
 
 
 def block_digests(image: np.ndarray, bounds: List[int]) -> List[bytes]:

@@ -11,9 +11,11 @@ import pytest
 ROOT = Path(__file__).resolve().parents[2]
 HERE = ROOT / "perfbench"
 BANNED = {"jax", "jaxlib", "flax", "repro", "benchmarks"}
-# the reference, the comparison and the yardstick: no program in them
+# the reference, its chunking rules, the comparison and the yardstick:
+# no program in them
 INDEPENDENT = ["reference.py", "check.py", "traffic.py", "roofline.py",
-               "devtrace.py"]
+               "devtrace.py"] + sorted(
+    str(p.relative_to(HERE)) for p in (HERE / "chunkers").glob("*.py"))
 
 
 def imported(path: Path):

@@ -127,3 +127,17 @@ def test_short_names():
         "int const*, long long)") == "sliding_md5_kernel<12, 1>"
     assert devtrace.short_name("(anonymous namespace)::md5_direct_kernel("
                                "unsigned int const*)") == "md5_direct_kernel"
+
+
+def test_candidates_roofline_sums_both_passes():
+    run = synthetic_run()
+    # 0.1 s of bytes bound over 0.15 s of the count and scatter passes
+    run.device = devtrace.DeviceTrace([
+        ("candidate_count_kernel<4>", 101.0, 101.1),
+        ("candidate_scatter_kernel<4>", 101.1, 101.15),
+        ("sliding_md5_kernel<12, 1>", 101.2, 101.3)], 100.5, 104.5)
+    run.work["candidates"] = (0.0, 3.35e12 * 0.1)
+    assert value("candidates_roofline", run) == pytest.approx(
+        100 * 0.1 / 0.15)
+    del run.work["candidates"]          # a rule that asks for no test
+    assert value("candidates_roofline", run) is None
