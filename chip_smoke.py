@@ -24,15 +24,20 @@ each printing its results:
    fail, and the f32 kernel's TF32 pre-pass bit for bit; the boundary-
    candidate kernel index for index and count for count on a 256 MiB
    image's window hashes at strides 1 and 4 and on gear rows over stale
-   bytes, under sparse and every-window rules;
+   bytes, under sparse and every-window rules, and its two-rule launch
+   (FastCDC's strict and loose masks) on those gear rows and on one
+   256 MiB image's gear hashes;
 4. the main path, the SAI content-addressable write/read path: a series
    of four 256 MiB checkpoint images written with ``write_async`` and read
    back with verification, under fixed 1 MiB blocks (``ca='fixed'``),
    sliding-window-MD5 content-defined chunking with the SAI's defaults
    (``ca='cdc'``, window 48, stride 4), the same at stride 1 (the paper's
-   byte-granular windows) and gear-hash CDC at the SAI's defaults
-   (``ca='cdc-gear'``), with the kernels' launch counts over exactly that
-   run and each configuration's similarities held to their known values;
+   byte-granular windows), gear-hash CDC at the SAI's defaults
+   (``ca='cdc-gear'``) and FastCDC at the benchmark's cas-gear settings
+   (``ca='fastcdc'``), with the kernels' launch counts over exactly that
+   run and each configuration's similarities held to their known values
+   (FastCDC's, and every image's chunk ends, to those of the plain
+   versions on the card);
    sliding hashes of one image against ``hashlib`` at both strides and
    gear chunk boundaries of one image against the CPU baseline, and the
    SAI's boundaries from the card's candidates against those selected
@@ -48,7 +53,8 @@ each printing its results:
 6. each kernel at its path's shapes (the sliding kernel at both of its
    strides, gear on one image and on phase 4's largest launch, the
    boundary-candidate compaction of that image's stride-1 hashes beside
-   the host path it replaced, flash
+   the host path it replaced, its two-rule call on one image's gear
+   hashes, flash
    attention through its own entry point at llama3-8b's widths and
    context in bf16, f16 and f32): its time with CUDA events beside its
    bound (for ``md5_direct`` also the bound of its serial chain, from the
@@ -184,6 +190,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 # the chunking rule's mean chunk of the benchmark's CDC writes
 # (perfbench's cas-cdc configuration): one candidate per 8 KiB
 BENCH_AVG_CHUNK = 8192
+# FastCDC's settings as the benchmark's cas-gear configuration states
+# them: NC-2 masks of 15 and 11 one-bits over the 32-bit gear hash,
+# chunks of 2, 8 and 64 KiB
+FASTCDC = {"ca": "fastcdc", "avg_chunk": 8192, "min_chunk": 2048,
+           "max_chunk": 65536, "mask_s": 0xD641C0D7, "mask_l": 0xD9000353}
+FASTCDC_RULE = (FASTCDC["mask_s"], 0, FASTCDC["mask_l"], 0)
 # dense peaks, H100 SXM data sheet: bf16 and TF32 on the tensor cores
 # (the flash kernels' wgmma), and f32 on the CUDA cores (outside the
 # tensor cores).  An f32-accurate product costs either one f32 FMA or
@@ -243,7 +255,8 @@ TENSOR_OPCODE = "HGMMA"
 # 4 B: 262145 words), the chain the probe times
 MD5_PROBE_COMPRESSIONS = (MiB // 4 + 1 + 18) // 16
 # WriteStats.similarity of the four versions of checkpoint_series(seed=0)
-# per configuration, to 4 places.  At stride 4 a window is hashed only at
+# per configuration, to 4 places (fastcdc's from its plain versions, see
+# fastcdc_plain).  At stride 4 a window is hashed only at
 # offsets 0 mod 4, so an insert of k bytes with k % 4 != 0 moves the
 # content off the grid and chunking does not resynchronise after it;
 # byte-granular windows (stride 1) and the gear hash (every byte) do
@@ -553,21 +566,26 @@ def candidates_match(torch, np, dev) -> int:
     ([1, 1, 64M]), and gear's [B, 1, L] rows of ragged lengths over
     stale bytes past each row's end; under the benchmark's 8 KiB rule,
     the SAI's default rule, and a rule that every window meets, with each
-    row's n_off also cut short of its plane.  Returns the largest
-    difference (0: every check is exact)."""
+    row's n_off also cut short of its plane.  The two-rule launch
+    (FastCDC's strict and loose masks, codes 4 k + flags) on one 256 MiB
+    image's gear hashes ([1, 1, 256M], the cas-gear cell's shape) and on
+    the ragged gear rows, under FastCDC's masks and under two rules that
+    every byte meets.  Returns the largest difference (0: every check is
+    exact)."""
     from repro_torch.core import SAIConfig, chunking
     from repro_torch.kernels import candidates, gear, sliding_md5
     rules = {"8 KiB": chunking.boundary_rule(BENCH_AVG_CHUNK),
              "SAI default": chunking.boundary_rule(SAIConfig().avg_chunk),
              "every window": (0, 0)}
+    two_rules = {"FastCDC NC-2": FASTCDC_RULE, "every byte, both": (0,) * 4}
     gen = torch.Generator(device=dev).manual_seed(4)
 
-    def same(hashes, n_off, what):
-        for rule, (mask, magic) in rules.items():
+    def same(hashes, n_off, what, rules=rules):
+        for rule, masks in rules.items():
             found, counts = candidates.boundary_candidates(hashes, n_off,
-                                                           mask, magic)
+                                                           *masks)
             want, want_counts = candidates.candidates_plain(hashes, n_off,
-                                                            mask, magic)
+                                                            *masks)
             check(torch.equal(found, want)
                   and counts.tolist() == want_counts.tolist(),
                   f"boundary_candidates == plain, {what}, rule {rule}")
@@ -594,7 +612,17 @@ def candidates_match(torch, np, dev) -> int:
                          device=dev, generator=gen)
     hashes = gear.gear_bytes(rows)[:, None]
     same(hashes, lens, f"gear {list(hashes.shape)}")
+    same(hashes, lens, f"gear {list(hashes.shape)}", two_rules)
     del hashes, rows
+    # the two-rule launch at the cas-gear cell's shape
+    img = torch.randint(0, 256, (1, IMAGE_BYTES), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    hashes = gear.gear_bytes(img)[:, None]
+    del img
+    what = f"gear {list(hashes.shape)} ({IMAGE_BYTES // MiB} MiB)"
+    same(hashes, [IMAGE_BYTES], what, two_rules)
+    same(hashes, [IMAGE_BYTES - 12345], what, two_rules)
+    del hashes
     return 0
 
 
@@ -780,10 +808,39 @@ def phase_kernels(torch, np, dev):
 # name -> SAIConfig overrides of the main path's configurations
 CONFIGS = {"fixed": {"ca": "fixed"}, "cdc": {"ca": "cdc"},
            "cdc-stride1": {"ca": "cdc", "stride": 1},
-           "cdc-gear": {"ca": "cdc-gear"}}
+           "cdc-gear": {"ca": "cdc-gear"}, "fastcdc": FASTCDC}
 
 
-def write_read(torch, np, eng, series, ca: str):
+def fastcdc_plain(torch, np, series):
+    """FastCDC's chunk ends of each image of ``series`` from the plain
+    versions on the card (``gear_plain``, ``candidates_plain``) and the
+    host's normalized walk, and each version's WriteStats.similarity
+    from them: the share of its chunks whose bytes an earlier chunk of
+    the series (this version's included) already held."""
+    from repro_torch.core import chunking
+    from repro_torch.kernels import candidates, gear
+    sizes = {k: FASTCDC[k] for k in ("avg_chunk", "min_chunk", "max_chunk")}
+    seen, bounds, sims = set(), [], []
+    for img in series:
+        x = torch.from_numpy(np.frombuffer(img, np.uint8).copy()).cuda()
+        hashes = gear.gear_plain(x[None])[:, None]
+        del x
+        found, _ = candidates.candidates_plain(hashes, [len(img)],
+                                               *FASTCDC_RULE)
+        del hashes
+        ends, _ = chunking.walk_normalized(found.cpu().numpy(), len(img),
+                                           **sizes)
+        dup = 0
+        for a, b in zip([0] + ends[:-1], ends):
+            digest = hashlib.md5(img[a:b]).digest()
+            dup += digest in seen
+            seen.add(digest)
+        bounds.append(ends)
+        sims.append(round(dup / len(ends), 4))
+    return bounds, sims
+
+
+def write_read(torch, np, eng, series, ca: str, similarity):
     from repro_torch.core import SAI, SAIConfig, make_store
     from repro_torch.core.sai import block_digest_cpu
     mgr, nodes = make_store(4, replication=2)
@@ -815,9 +872,11 @@ def write_read(torch, np, eng, series, ca: str):
            "dup_blocks": [s.dup_blocks for s in stats],
            "engine_jobs": s1["jobs"] - s0["jobs"],
            "engine_launches": s1["launches"] - s0["launches"],
+           "boundary_strict": s1["boundary_strict"]
+           - s0["boundary_strict"],
            "blocks_checked": n_checked}
-    check([round(x, 4) for x in out["similarity"]] == SIMILARITY[ca],
-          f"{ca}: similarities {out['similarity']} match {SIMILARITY[ca]}")
+    check([round(x, 4) for x in out["similarity"]] == similarity,
+          f"{ca}: similarities {out['similarity']} match {similarity}")
     print(f"{ca}: write {out['write_mb_s']:.1f} MB/s, read (verified) "
           f"{out['read_mb_s']:.1f} MB/s over {N_IMAGES} x "
           f"{IMAGE_BYTES // MiB} MiB; similarity "
@@ -844,13 +903,19 @@ def phase_main_path(torch, np, series, smi: str):
                 "gear": gear.LAUNCHES,
                 "boundary_candidates": candidates.LAUNCHES}
     kept = {}
+    t0 = time.perf_counter()
+    plain_bounds, plain_sims = fastcdc_plain(torch, np, series)
+    print(f"fastcdc from the plain versions: {[len(b) for b in plain_bounds]}"
+          f" chunks, similarity {plain_sims} ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    similarity = dict(SIMILARITY, fastcdc=plain_sims)
     try:
         for c in counters.values():
             c.reset()
         per = {}
         for ca in CONFIGS:
             before = {n: c.value for n, c in counters.items()}
-            kept[ca] = write_read(torch, np, eng, series, ca)
+            kept[ca] = write_read(torch, np, eng, series, ca, similarity[ca])
             per[ca] = {n: c.value - before[n] for n, c in counters.items()}
             print(f"{ca}: kernel launches {per[ca]}")
         launches = {n: c.value for n, c in counters.items()}
@@ -872,19 +937,27 @@ def phase_main_path(torch, np, series, smi: str):
               and per["cdc-stride1"]["sliding_md5"] > 0
               and per["cdc-gear"]["sliding_md5"] == 0,
               "sliding kernel runs under ca='cdc' only")
-        check(per["cdc-gear"]["gear"] > 0 and per["cdc-gear"]["md5"] > 0
+        gear_modes = ("cdc-gear", "fastcdc")
+        check(all(per[ca]["gear"] > 0 and per[ca]["md5"] > 0
+                  for ca in gear_modes)
               and all(per[ca]["gear"] == 0 for ca in CONFIGS
-                      if ca != "cdc-gear"),
-              "gear kernel runs under ca='cdc-gear' only, md5 beside it")
+                      if ca not in gear_modes),
+              "gear kernel runs under ca='cdc-gear' and 'fastcdc' only, "
+              "md5 beside it")
+        check(kept["fastcdc"][3]["boundary_strict"] > 0
+              and all(kept[ca][3]["boundary_strict"] == 0 for ca in CONFIGS
+                      if ca != "fastcdc"),
+              "strict-mask candidates are counted under ca='fastcdc' only")
         check(largest[0] == 1 or largest_bytes <= eng.max_fused_bytes,
               "the fusion byte cap bounds fused gear launches")
         check(per["fixed"]["boundary_candidates"] == 0
               and all(per[ca]["boundary_candidates"] > 0
-                      for ca in ("cdc", "cdc-stride1", "cdc-gear")),
+                      for ca in ("cdc", "cdc-stride1", "cdc-gear",
+                                 "fastcdc")),
               "boundary candidates are compacted on the card under every "
               "CDC mode, never under ca='fixed'")
         fixed = kept["fixed"][3]["similarity"]
-        for ca in ("cdc-stride1", "cdc-gear"):
+        for ca in ("cdc-stride1", "cdc-gear", "fastcdc"):
             sim = kept[ca][3]["similarity"]
             check(all(c > f for c, f in zip(sim[1:], fixed[1:])),
                   f"{ca} similarity {sim} above fixed-block similarity "
@@ -905,6 +978,14 @@ def phase_main_path(torch, np, series, smi: str):
         print(f"gear chunk boundaries of image 2: {len(on_card)} chunks "
               f"over {len(series[1]) // MiB} MiB, engine ({t1 - t0:.2f} s) "
               f"== _cpu_gear ({t2 - t1:.2f} s)")
+        # FastCDC's chunk ends of every image: engine == plain versions
+        fsai = kept["fastcdc"][0]
+        for v, img in enumerate(series):
+            check(fsai._boundaries(img) == plain_bounds[v],
+                  f"fastcdc chunk ends of image {v + 1} from the engine == "
+                  f"from the plain versions")
+        print(f"fastcdc chunk ends of all {len(series)} images from the "
+              f"engine == from the plain versions")
 
         # sliding hashes of one image against hashlib at sampled offsets,
         # at both strides of the main path
@@ -1116,6 +1197,34 @@ def time_split(flush, q, k, v, errs):
             "bound_by": "bytes", "shape": desc, "library_ms": None}
 
 
+def time_two_rules(torch, flush, hashes):
+    """The two-rule candidate call as a cas-gear write makes it (one
+    256 MiB image's gear hashes, FastCDC's masks), the whole wrapper,
+    beside its bound (the hashes read once) and against its plain
+    version."""
+    from repro_torch.kernels import candidates
+    n = hashes.shape[-1]
+    ms = time_cuda(lambda: candidates.boundary_candidates(
+        hashes, [n], *FASTCDC_RULE), flush)
+    found, counts = candidates.boundary_candidates(hashes, [n],
+                                                   *FASTCDC_RULE)
+    want = {}
+    plain_ms = time_cuda(lambda: want.setdefault(
+        "v", candidates.candidates_plain(hashes, [n], *FASTCDC_RULE)),
+        flush, repeats=1, warmup=0)
+    check(torch.equal(found, want["v"][0])
+          and counts.tolist() == want["v"][1].tolist(),
+          "two-rule boundary_candidates == plain at the cas-gear shape")
+    strict = int((found & 1).sum())
+    b_ms = 4 * n / HBM_BYTES_PER_S * 1e3
+    print(f"boundary_candidates, two rules: {ms:.3f} ms at "
+          f"{list(hashes.shape)} uint32 (gear hashes of {n // MiB} MiB), "
+          f"{found.numel()} candidates ({strict} strict); bound "
+          f"{b_ms:.4f} ms (bytes: {4 * n} B of hashes read once at "
+          f"3.35 TB/s), {b_ms / ms:.1%} of it; plain {plain_ms:.1f} ms, "
+          f"exact")
+
+
 def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
                 gear_largest):
     print("== phase 6: kernels at their paths' shapes: times (CUDA "
@@ -1316,6 +1425,7 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
             out["gear"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                            "bound_by": b_by, "shape": desc,
                            "library_ms": None}
+            time_two_rules(torch, flush, gear.gear_bytes(x)[:, None])
         del x
     # flash attention at llama3-8b's widths and context: batch 1 x 32
     # query heads, each of the 8 kv heads broadcast to its 4 query heads

@@ -110,10 +110,15 @@ Job normal forms
               ``h & mask == magic`` (gear: byte positions).  The rule is
               tested and its hits compacted on the card
               (``candidates.boundary_candidates``), so only the
-              candidates come back to the host, not every hash.  Such
-              jobs fuse only with jobs of the same kind, settings and
-              rule; ``boundary_jobs`` and ``boundary_candidates`` count
-              them and what they returned.
+              candidates come back to the host, not every hash.  With
+              'mask2' (and 'magic2') as well, a window that meets either
+              rule comes back as the code ``4 * k + flags``, flagged by
+              the rules it meets (``candidates.decode``; FastCDC's
+              strict and loose masks).  Such jobs fuse only with jobs of
+              the same kind, settings and rules; ``boundary_jobs`` and
+              ``boundary_candidates`` count them and what they returned,
+              ``boundary_strict`` the two-rule candidates that meet the
+              first rule.
 """
 from __future__ import annotations
 
@@ -274,11 +279,15 @@ def _normalize_direct(data: np.ndarray, meta: Dict[str, Any]):
 
 def _candidate_rule(meta: Dict[str, Any]) -> tuple:
     """``("candidates", mask, magic)`` for a stream job that asks for its
-    boundary candidates (meta 'mask', 'magic'), else ``()``; it ends the
-    job's fuse key."""
+    boundary candidates (meta 'mask', 'magic'), with ``mask2, magic2``
+    after them for a second rule, else ``()``; it ends the job's fuse
+    key."""
     if "mask" not in meta:
         return ()
-    return ("candidates", int(meta["mask"]), int(meta.get("magic", 0)))
+    rule = ("candidates", int(meta["mask"]), int(meta.get("magic", 0)))
+    if "mask2" in meta:
+        rule += (int(meta["mask2"]), int(meta.get("magic2", 0)))
+    return rule
 
 
 # kind -> (sec_per_byte, launch_overhead_s): the cost model's start, the
@@ -618,7 +627,7 @@ class CrystalGPU:
             ("jobs", "bytes", "launches", "coalesced", "max_fused",
              "scrub_jobs", "scrub_launches", "scrub_coalesced",
              "sharded_jobs", "shards", "manager_restarts",
-             "boundary_jobs", "boundary_candidates"))
+             "boundary_jobs", "boundary_candidates", "boundary_strict"))
         # test hooks: _fault_hook(dev_index, batch) runs after a batch is
         # drained but OUTSIDE the launch try (an exception there kills
         # the manager thread -> crash-recovery path); _launch_hook runs
@@ -839,8 +848,12 @@ class CrystalGPU:
                 elif _candidate_rule(parent.meta):
                     step = int(parent.meta.get("stride", 4)) \
                         if parent.kind == "sliding" else 1
+                    # two-rule codes hold the index above their flags
+                    shift = candidates.FLAG_BITS \
+                        if "mask2" in parent.meta else 0
                     parent.result = np.concatenate(
-                        [c.result[c.result >= d] + a // step
+                        [c.result[(c.result >> shift) >= d]
+                         + ((a // step) << shift)
                          for c, (_, a, _, d) in zip(results, plan)])
                 else:
                     parent.result = np.concatenate(
@@ -1272,7 +1285,7 @@ class CrystalGPU:
                 else:
                     planes, n_off = out[:, None], lens
                 found, counts = candidates.boundary_candidates(
-                    planes, n_off, rule[1], rule[2], stream=dev.stream)
+                    planes, n_off, *rule[1:], stream=dev.stream)
                 host = self._pull(slot, dev, found)
             else:
                 host = self._pull(slot, dev, out)
@@ -1283,6 +1296,9 @@ class CrystalGPU:
                 j.result = host[end - n:end].copy()
             self.stats.inc("boundary_jobs", len(batch))
             self.stats.inc("boundary_candidates", int(ends[-1]))
+            if len(rule) > 3:
+                self.stats.inc("boundary_strict",
+                               int(candidates.decode(host)[1].sum()))
         else:
             for i, j in enumerate(batch):
                 if kind == "sliding":

@@ -53,6 +53,9 @@ Configurations mirror the paper's evaluation matrix:
   ca='fixed'                -> fixed-size blocks + direct hashing
   ca='cdc'                  -> content-based chunking (sliding-window MD5)
   ca='cdc-gear'             -> beyond-paper gear-hash CDC
+  ca='fastcdc'              -> FastCDC (Xia et al., USENIX ATC 2016): the
+        gear hash under a strict mask (``mask_s``) up to ``avg_chunk``
+        and a loose one (``mask_l``) after it, normalized chunking
   hasher='gpu' | 'cpu'      ('tpu' is accepted as another name for 'gpu',
         so configurations move between the JAX package and this one; the
         port has no CA-Infinite oracle: 'infinite' is refused, since a
@@ -82,17 +85,21 @@ from repro_torch.obs import HeartbeatBoard, MetricsRegistry, Trace
 # hasher names that hash through the offload engine ('tpu' is the JAX
 # package's name for the same path)
 ENGINE_HASHERS = ("gpu", "tpu")
+# chunking modes (SAIConfig.ca)
+CA_MODES = ("none", "fixed", "cdc", "cdc-gear", "fastcdc")
 
 
 @dataclass
 class SAIConfig:
-    ca: str = "fixed"                 # none | fixed | cdc | cdc-gear
+    ca: str = "fixed"                 # one of CA_MODES
     block_size: int = 1 << 20         # fixed-size block bytes
     avg_chunk: int = 1 << 20          # CDC target chunk
     min_chunk: int = 256 << 10
     max_chunk: int = 4 << 20
     window: int = 48
     stride: int = 4
+    mask_s: int = 0                   # ca='fastcdc': the 32-bit strict
+    mask_l: int = 0                   # and loose masks over the gear hash
     hasher: str = "gpu"               # gpu (alias tpu) | cpu
     stripe_width: int = 4
     store_lanes: int = 4              # parallel per-path commit lanes
@@ -117,6 +124,19 @@ class SAIConfig:
             raise ValueError(
                 f"hasher={self.hasher!r}: the port hashes with 'gpu' "
                 f"(alias 'tpu') or 'cpu' and has no CA-Infinite oracle")
+        if self.ca not in CA_MODES:
+            raise ValueError(f"ca={self.ca!r}: expected one of {CA_MODES}")
+        if self.ca == "fastcdc":
+            for name in ("mask_s", "mask_l"):
+                if not 0 < getattr(self, name) < 2 ** 32:
+                    raise ValueError(f"ca='fastcdc' needs {name}, a nonzero "
+                                     f"32-bit mask over the gear hash")
+            # a cut's hash then covers a whole window of the chunk's bytes
+            if not chunking.GEAR_WINDOW <= self.min_chunk \
+                    <= self.avg_chunk <= self.max_chunk:
+                raise ValueError(
+                    f"ca='fastcdc' needs {chunking.GEAR_WINDOW} <= "
+                    f"min_chunk <= avg_chunk <= max_chunk")
 
 
 @dataclass
@@ -386,10 +406,11 @@ class SAI:
         """Chunk ends of ``data``.  For content-defined chunking on the
         engine, the window-hash job tests the boundary rule on the card
         and returns only the candidate windows, which the host walks;
-        ``hasher='cpu'`` hashes every window on the host and selects
-        from all of them.  ``trace`` takes the window-hash job
+        ``hasher='cpu'`` hashes every window on the host and tests the
+        rule there.  ``trace`` takes the window-hash job
         (sai/chunk/slide, with that job's engine stages, the rule test
-        and compaction included) and the walk (sai/chunk/scan)."""
+        and compaction included) and the walk (sai/chunk/scan, with the
+        candidates walked and the cuts forced at ``max_chunk``)."""
         cfg = self.cfg
         if len(data) == 0:
             return []
@@ -397,38 +418,47 @@ class SAI:
             n = (len(data) + cfg.block_size - 1) // cfg.block_size
             return [min((i + 1) * cfg.block_size, len(data))
                     for i in range(n)]
-        if cfg.ca not in ("cdc", "cdc-gear"):
+        if cfg.ca not in ("cdc", "cdc-gear", "fastcdc"):
             raise ValueError(self.cfg.ca)
         if cfg.ca == "cdc":
             kind, window, stride = "sliding", cfg.window, cfg.stride
             meta = {"window": window, "stride": stride}
         else:
             kind, window, stride, meta = "gear", 1, 1, {}
-        sizes = dict(window=window, stride=stride, avg_chunk=cfg.avg_chunk,
-                     min_chunk=cfg.min_chunk, max_chunk=cfg.max_chunk)
+        if cfg.ca == "fastcdc":
+            # FastCDC cuts where the masked bits are all zero
+            rule = (cfg.mask_s, 0, cfg.mask_l, 0)
+        else:
+            rule = chunking.boundary_rule(cfg.avg_chunk)
         t0 = time.perf_counter()
         job = None
         if cfg.hasher in ENGINE_HASHERS:
-            mask, magic = chunking.boundary_rule(cfg.avg_chunk)
             job = self.engine.submit(
                 kind, np.frombuffer(data, np.uint8),
-                {**meta, "mask": mask, "magic": magic}, lane=cfg.lane)
+                {**meta, **dict(zip(("mask", "magic", "mask2", "magic2"),
+                                    rule))}, lane=cfg.lane)
             found = job.wait()
-            t1 = time.perf_counter()
-            bounds = chunking.boundaries_from_candidates(
-                found, len(data), **sizes)
         else:
             hashes = _cpu_sliding(data, window, stride) \
                 if kind == "sliding" else _cpu_gear(data)
-            t1 = time.perf_counter()
-            bounds = chunking.select_boundaries(hashes, len(data), **sizes)
+            found = chunking.host_candidates(hashes, *rule)
+        t1 = time.perf_counter()
+        sizes = dict(avg_chunk=cfg.avg_chunk, min_chunk=cfg.min_chunk,
+                     max_chunk=cfg.max_chunk)
+        if cfg.ca == "fastcdc":
+            bounds, forced = chunking.walk_normalized(found, len(data),
+                                                      **sizes)
+        else:
+            bounds, forced = chunking.boundaries_from_candidates(
+                found, len(data), window=window, stride=stride, **sizes)
         if trace is not None:
             trace.add_span("sai/chunk/slide", t0, t1, "sai/chunk",
                            bytes=len(data))
             if job is not None:
                 _trace_engine_stages(trace, job, "sai/chunk/slide")
             trace.add_span("sai/chunk/scan", t1, time.perf_counter(),
-                           "sai/chunk", chunks=len(bounds))
+                           "sai/chunk", chunks=len(bounds),
+                           candidates=len(found), forced=forced)
         return bounds
 
     # ------------------------------------------------------------------

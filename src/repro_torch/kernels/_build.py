@@ -49,9 +49,11 @@ SIGNATURES = {
                                    + [ctypes.c_float, _c_void_p],
     "md5_chain_probe_launch": [_c_void_p, _c_ll, _c_int, _c_void_p],
     "candidate_count_launch": [_c_void_p] * 3 + [_c_int] * 2
-                              + [_c_ll] * 2 + [_c_uint] * 2 + [_c_void_p],
+                              + [_c_ll] * 2 + [_c_uint] * 2 + [_c_int]
+                              + [_c_uint] * 2 + [_c_void_p],
     "candidate_scatter_launch": [_c_void_p] * 5 + [_c_int] * 2
-                                + [_c_ll] * 2 + [_c_uint] * 2 + [_c_void_p],
+                                + [_c_ll] * 2 + [_c_uint] * 2 + [_c_int]
+                                + [_c_uint] * 2 + [_c_void_p],
 }
 
 

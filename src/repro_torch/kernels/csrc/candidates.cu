@@ -1,6 +1,10 @@
 // Boundary candidates of content-defined chunking: per row, the window
 // indices whose hash h meets the chunking rule (h & mask) == magic, in
-// ascending order.
+// ascending order.  With a second rule (mask2, magic2; FastCDC's loose
+// mask beside its strict one) a window is a candidate when it meets
+// either, and comes out as 4 * k + flags: bit 0 set when it meets the
+// first rule, bit 1 the second.  Each hash is still read once by the
+// count pass; both tests run on the one load.
 //
 // Replaces no TPU kernel.  The JAX package, like the paper's HashGPU,
 // brings every window hash back to the host and tests the rule there
@@ -40,8 +44,9 @@
 //
 // Interface: hashes, n_off [B] int64, counts [B, tiles] int32, ends
 // [B * tiles] int64 (inclusive prefix sums of counts), out [ends[-1]]
-// int64.  B <= 65535.  Launches on the given stream and does not
-// synchronise; returns cudaGetLastError().
+// int64; rules 1 (mask2 and magic2 unused) or 2.  B <= 65535.  Launches
+// on the given stream and does not synchronise; returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -55,15 +60,23 @@ constexpr int kQ = 4;                           // word offsets a thread
 constexpr int kTileQ = kThreads * kQ;           // word offsets a block
 constexpr int kMaxRows = 65535;
 
-// Bit j * R + i is set when window (q0 + j) * R + i is a candidate.
-// With vec the row's planes are 16-byte aligned and Wc % 4 == 0, so a
-// run that starts inside a plane (q0 * R < n_off <= R * Wc) lies in it.
-template <int R>
-__device__ __forceinline__ uint32_t hit_bits(
-    const uint32_t* __restrict__ row, long long wc, long long q0,
-    long long n_off, uint32_t mask, uint32_t magic, bool vec) {
-  uint32_t bits = 0u;
-  if (q0 * R >= n_off) return bits;
+struct Rules {
+  uint32_t mask, magic, mask2, magic2;
+};
+
+// Bit j * R + i of b1 (of b2) is set when window (q0 + j) * R + i meets
+// the first rule (the second; M == 2 only, else b2 stays 0).  With vec
+// the row's planes are 16-byte aligned and Wc % 4 == 0, so a run that
+// starts inside a plane (q0 * R < n_off <= R * Wc) lies in it.
+template <int R, int M>
+__device__ __forceinline__ void hit_bits(const uint32_t* __restrict__ row,
+                                         long long wc, long long q0,
+                                         long long n_off, Rules rules,
+                                         bool vec, uint32_t& b1,
+                                         uint32_t& b2) {
+  b1 = 0u;
+  b2 = 0u;
+  if (q0 * R >= n_off) return;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const uint32_t* plane = row + i * wc;
@@ -82,25 +95,27 @@ __device__ __forceinline__ uint32_t hit_bits(
 #pragma unroll
     for (int j = 0; j < kQ; ++j) {
       const long long k = (q0 + j) * R + i;
-      if (k < n_off && (h[j] & mask) == magic) bits |= 1u << (j * R + i);
+      if (k >= n_off) continue;
+      const uint32_t bit = 1u << (j * R + i);
+      if ((h[j] & rules.mask) == rules.magic) b1 |= bit;
+      if (M == 2 && (h[j] & rules.mask2) == rules.magic2) b2 |= bit;
     }
   }
-  return bits;
 }
 
-template <int R>
+template <int R, int M>
 __global__ void __launch_bounds__(kThreads)
     candidate_count_kernel(const uint32_t* __restrict__ hashes,
                            const long long* __restrict__ n_off,
                            int* __restrict__ counts, long long wc,
-                           long long tiles, uint32_t mask, uint32_t magic,
-                           bool vec) {
+                           long long tiles, Rules rules, bool vec) {
   const long long row = blockIdx.y;
   const long long q0 =
       static_cast<long long>(blockIdx.x) * kTileQ + threadIdx.x * kQ;
-  const uint32_t bits = hit_bits<R>(hashes + row * R * wc, wc, q0,
-                                    n_off[row], mask, magic, vec);
-  const int n = __reduce_add_sync(0xffffffffu, __popc(bits));
+  uint32_t b1, b2;
+  hit_bits<R, M>(hashes + row * R * wc, wc, q0, n_off[row], rules, vec, b1,
+                 b2);
+  const int n = __reduce_add_sync(0xffffffffu, __popc(b1 | b2));
   __shared__ int warp_n[kWarps];
   if ((threadIdx.x & 31) == 0) warp_n[threadIdx.x >> 5] = n;
   __syncthreads();
@@ -112,23 +127,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int R>
+template <int R, int M>
 __global__ void __launch_bounds__(kThreads)
     candidate_scatter_kernel(const uint32_t* __restrict__ hashes,
                              const long long* __restrict__ n_off,
                              const long long* __restrict__ ends,
                              const int* __restrict__ counts,
                              long long* __restrict__ out, long long wc,
-                             long long tiles, uint32_t mask,
-                             uint32_t magic, bool vec) {
+                             long long tiles, Rules rules, bool vec) {
   const long long row = blockIdx.y;
   const long long idx = row * tiles + blockIdx.x;
   const int block_n = counts[idx];
   if (block_n == 0) return;                     // the whole block alike
   const long long q0 =
       static_cast<long long>(blockIdx.x) * kTileQ + threadIdx.x * kQ;
-  uint32_t bits = hit_bits<R>(hashes + row * R * wc, wc, q0, n_off[row],
-                              mask, magic, vec);
+  uint32_t b1, b2;
+  hit_bits<R, M>(hashes + row * R * wc, wc, q0, n_off[row], rules, vec, b1,
+                 b2);
+  uint32_t bits = b1 | b2;
   const int n = __popc(bits);
   const int lane = threadIdx.x & 31;
   int incl = n;                                 // inclusive, in the warp
@@ -145,7 +161,12 @@ __global__ void __launch_bounds__(kThreads)
   long long pos = ends[idx] - block_n + before + incl - n;
   const long long k0 = q0 * R;
   while (bits) {
-    out[pos++] = k0 + (__ffs(static_cast<int>(bits)) - 1);
+    const int b = __ffs(static_cast<int>(bits)) - 1;
+    if (M == 1) {
+      out[pos++] = k0 + b;
+    } else {
+      out[pos++] = (k0 + b) * 4 + ((b1 >> b) & 1u) + ((b2 >> b) & 1u) * 2;
+    }
     bits &= bits - 1u;
   }
 }
@@ -156,11 +177,34 @@ bool vectorizable(const void* hashes, long long wc) {
 
 }  // namespace
 
+// The cases of a switch on phases * 4 + rules: kernel K<R, M> for R
+// phases and M rules, on grid and stream s.
+#define CANDIDATE_CASES(K, ...)                                         \
+  case 1 * 4 + 1:                                                       \
+    K<1, 1><<<grid, kThreads, 0, s>>>(__VA_ARGS__);                     \
+    break;                                                              \
+  case 2 * 4 + 1:                                                       \
+    K<2, 1><<<grid, kThreads, 0, s>>>(__VA_ARGS__);                     \
+    break;                                                              \
+  case 4 * 4 + 1:                                                       \
+    K<4, 1><<<grid, kThreads, 0, s>>>(__VA_ARGS__);                     \
+    break;                                                              \
+  case 1 * 4 + 2:                                                       \
+    K<1, 2><<<grid, kThreads, 0, s>>>(__VA_ARGS__);                     \
+    break;                                                              \
+  case 2 * 4 + 2:                                                       \
+    K<2, 2><<<grid, kThreads, 0, s>>>(__VA_ARGS__);                     \
+    break;                                                              \
+  case 4 * 4 + 2:                                                       \
+    K<4, 2><<<grid, kThreads, 0, s>>>(__VA_ARGS__);                     \
+    break;
+
 extern "C" int candidate_count_launch(const void* hashes, const void* n_off,
                                       void* counts, int n_rows, int phases,
                                       long long wc, long long tiles,
                                       unsigned mask, unsigned magic,
-                                      void* stream) {
+                                      int rules, unsigned mask2,
+                                      unsigned magic2, void* stream) {
   if (n_rows <= 0 || tiles <= 0) return 0;
   if (n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(tiles),
@@ -169,20 +213,10 @@ extern "C" int candidate_count_launch(const void* hashes, const void* n_off,
   const auto* h = static_cast<const uint32_t*>(hashes);
   const auto* n = static_cast<const long long*>(n_off);
   auto* c = static_cast<int*>(counts);
+  const Rules r{mask, magic, mask2, magic2};
   const bool vec = vectorizable(hashes, wc);
-  switch (phases) {
-    case 1:
-      candidate_count_kernel<1><<<grid, kThreads, 0, s>>>(
-          h, n, c, wc, tiles, mask, magic, vec);
-      break;
-    case 2:
-      candidate_count_kernel<2><<<grid, kThreads, 0, s>>>(
-          h, n, c, wc, tiles, mask, magic, vec);
-      break;
-    case 4:
-      candidate_count_kernel<4><<<grid, kThreads, 0, s>>>(
-          h, n, c, wc, tiles, mask, magic, vec);
-      break;
+  switch (phases * 4 + rules) {
+    CANDIDATE_CASES(candidate_count_kernel, h, n, c, wc, tiles, r, vec)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -194,7 +228,9 @@ extern "C" int candidate_scatter_launch(const void* hashes,
                                         const void* counts, void* out,
                                         int n_rows, int phases, long long wc,
                                         long long tiles, unsigned mask,
-                                        unsigned magic, void* stream) {
+                                        unsigned magic, int rules,
+                                        unsigned mask2, unsigned magic2,
+                                        void* stream) {
   if (n_rows <= 0 || tiles <= 0) return 0;
   if (n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(tiles),
@@ -205,20 +241,11 @@ extern "C" int candidate_scatter_launch(const void* hashes,
   const auto* e = static_cast<const long long*>(ends);
   const auto* c = static_cast<const int*>(counts);
   auto* o = static_cast<long long*>(out);
+  const Rules r{mask, magic, mask2, magic2};
   const bool vec = vectorizable(hashes, wc);
-  switch (phases) {
-    case 1:
-      candidate_scatter_kernel<1><<<grid, kThreads, 0, s>>>(
-          h, n, e, c, o, wc, tiles, mask, magic, vec);
-      break;
-    case 2:
-      candidate_scatter_kernel<2><<<grid, kThreads, 0, s>>>(
-          h, n, e, c, o, wc, tiles, mask, magic, vec);
-      break;
-    case 4:
-      candidate_scatter_kernel<4><<<grid, kThreads, 0, s>>>(
-          h, n, e, c, o, wc, tiles, mask, magic, vec);
-      break;
+  switch (phases * 4 + rules) {
+    CANDIDATE_CASES(candidate_scatter_kernel, h, n, e, c, o, wc, tiles, r,
+                    vec)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

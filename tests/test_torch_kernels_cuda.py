@@ -3,7 +3,9 @@ against its plain version and ``hashlib`` or ``_cpu_gear``, bit for bit,
 flash attention against its plain version (f32 within the JAX package's
 2e-5, also on rows of 16384 and 32768 keys; bf16 and f16 within the bound
 derived from their rounding), the f32 flash
-kernel's TF32 pre-pass against its plain version bit for bit, two managers
+kernel's TF32 pre-pass against its plain version bit for bit, the
+boundary-candidate kernel under one rule and under two (FastCDC's strict
+and loose masks) against its plain version, two managers
 sharing one card through their own streams, and a whale job sharded across
 four managers of one card.  Every test here needs an
 NVIDIA GPU and ``nvcc``; without them it skips.  Run on a GPU machine with
@@ -17,7 +19,8 @@ import torch
 
 from repro_torch.core import SAI, CrystalGPU, SAIConfig, make_store
 from repro_torch.core.sai import _cpu_gear
-from repro_torch.kernels import flash_attn, gear, md5, ops, sliding_md5
+from repro_torch.kernels import (candidates, flash_attn, gear, md5, ops,
+                                 sliding_md5)
 
 pytestmark = pytest.mark.cuda
 
@@ -206,6 +209,65 @@ def test_engine_gear_launches_exact_rows(cuda, rng):
         assert width == n and rows <= len(bufs)
     finally:
         eng.shutdown()
+
+
+# FastCDC's masks of the cas-gear configuration (perfbench/configs)
+MASK_S, MASK_L = 0xD641C0D7, 0xD9000353
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+def test_candidate_kernel_two_rules_matches_plain(cuda, R):
+    """Gear hashes of random rows, a zero-filled row (where every
+    position of a row of equal bytes meets a mask or none does) and rows
+    cut short by n_off: the two-rule launch returns the plain version's
+    codes and counts exactly, under FastCDC's masks and under masks loose
+    enough that most windows meet one; the one-rule launch on the same
+    hashes still returns the plain version's bare indices."""
+    L = (1 << 18) + 12
+    rows = np.random.default_rng(R).integers(0, 256, (4, L), dtype=np.uint8)
+    rows[1] = 0
+    hashes = gear.gear_bytes(torch.from_numpy(rows).to(cuda))
+    Wc = L // R
+    planes = hashes.view(-1)[:4 * R * Wc].view(4, R, Wc)
+    n_off = [R * Wc, R * Wc, R * Wc - 1001, 7]
+    for rules in ((MASK_S, 0, MASK_L, 0), (1 << 31, 0, 0x80000001, 1)):
+        got, counts = candidates.boundary_candidates(planes, n_off, *rules)
+        want, want_counts = candidates.candidates_plain(planes, n_off,
+                                                        *rules)
+        assert torch.equal(got, want)
+        assert counts.tolist() == want_counts.tolist()
+        k, first, second = candidates.decode(got.cpu().numpy())
+        assert (first | second).all() and k.size == int(counts.sum())
+    one, one_counts = candidates.boundary_candidates(planes, n_off, MASK_L,
+                                                     0)
+    want, want_counts = candidates.candidates_plain(planes, n_off, MASK_L, 0)
+    assert torch.equal(one, want)
+    assert one_counts.tolist() == want_counts.tolist()
+
+
+def test_fastcdc_write_on_the_card_equals_cpu(cuda):
+    """A FastCDC write through the engine on the card chunks as the
+    host's gear and walk do, and counts the strict candidates."""
+    img = np.random.default_rng(3).integers(0, 256, 4 << 20,
+                                            dtype=np.uint8).tobytes()
+    cfg = dict(ca="fastcdc", avg_chunk=8192, min_chunk=2048,
+               max_chunk=65536, mask_s=MASK_S, mask_l=MASK_L)
+    eng = CrystalGPU(devices=[cuda])
+    mgr, _ = make_store(4, replication=2)
+    sai = SAI(mgr, SAIConfig(**cfg), crystal=eng)
+    try:
+        bounds = sai._boundaries(img)
+        st = eng.snapshot_stats()
+    finally:
+        sai.close()
+        eng.shutdown()
+    cpu = SAI(make_store(4, replication=2)[0],
+              SAIConfig(hasher="cpu", **cfg))
+    assert bounds == cpu._boundaries(img)
+    h = _cpu_gear(img)
+    assert st["boundary_strict"] == np.count_nonzero((h & MASK_S) == 0)
+    assert st["boundary_candidates"] == np.count_nonzero(
+        ((h & MASK_S) == 0) | ((h & MASK_L) == 0))
 
 
 def _plain_dropping(q, k, v, lo, hi):
