@@ -26,7 +26,9 @@ each printing its results:
    image's window hashes at strides 1 and 4 and on gear rows over stale
    bytes, under sparse and every-window rules, and its two-rule launch
    (FastCDC's strict and loose masks) on those gear rows and on one
-   256 MiB image's gear hashes;
+   256 MiB image's gear hashes; the direct MD5's spans entry, every
+   padding-edge length at every start residue mod 4, against its plain
+   version and ``hashlib``;
 4. the main path, the SAI content-addressable write/read path: a series
    of four 256 MiB checkpoint images written with ``write_async`` and read
    back with verification, under fixed 1 MiB blocks (``ca='fixed'``),
@@ -37,7 +39,10 @@ each printing its results:
    (``ca='fastcdc'``), with the kernels' launch counts over exactly that
    run and each configuration's similarities held to their known values
    (FastCDC's, and every image's chunk ends, to those of the plain
-   versions on the card);
+   versions on the card); the spans entry's launches under every mode
+   (each write hashes its chunks as spans of its image), and its digests
+   of every image as FastCDC cuts it against ``hashlib`` (the first and
+   the widest chunks also against its plain version);
    sliding hashes of one image against ``hashlib`` at both strides and
    gear chunk boundaries of one image against the CPU baseline, and the
    SAI's boundaries from the card's candidates against those selected
@@ -58,7 +63,10 @@ each printing its results:
    attention through its own entry point at llama3-8b's widths and
    context in bf16, f16 and f32): its time with CUDA events beside its
    bound (for ``md5_direct`` also the bound of its serial chain, from the
-   probe; for the sliding kernel the count of only the rounds digest word
+   probe; the spans entry on one 256 MiB image as the benchmark's LBFS
+   rule cuts it, beside ``md5_direct`` on the same chunks' packed rows,
+   bound by the work or by its longest chunk's chain; for the sliding
+   kernel the count of only the rounds digest word
    a needs, beside the full count, and the time its SASS needs on the ALU
    and on the FMA pipe), its plain version's time and result on the same
    inputs, and for flash attention PyTorch's
@@ -196,6 +204,13 @@ BENCH_AVG_CHUNK = 8192
 FASTCDC = {"ca": "fastcdc", "avg_chunk": 8192, "min_chunk": 2048,
            "max_chunk": 65536, "mask_s": 0xD641C0D7, "mask_l": 0xD9000353}
 FASTCDC_RULE = (FASTCDC["mask_s"], 0, FASTCDC["mask_l"], 0)
+# LBFS's settings as the benchmark's cas-cdc configuration states them:
+# every 48-byte window (stride 1), chunks of 2, 8 and 64 KiB
+CAS_CDC = {"ca": "cdc", "window": 48, "stride": 1,
+           "avg_chunk": BENCH_AVG_CHUNK, "min_chunk": 2048,
+           "max_chunk": 65536}
+# chunks of phase 6's spans image that the plain version times
+SPAN_PLAIN_TIMED = 1024
 # dense peaks, H100 SXM data sheet: bf16 and TF32 on the tensor cores
 # (the flash kernels' wgmma), and f32 on the CUDA cores (outside the
 # tensor cores).  An f32-accurate product costs either one f32 FMA or
@@ -236,7 +251,12 @@ FMA_OPCODES = ("IMAD", "VIADD")
 # kernel name -> substrings of its SASS function name, mangled or not
 # (the sliding kernel at the main path's window of 12 words, stride 4 and
 # stride 1)
-SASS_FUNCTIONS = {"md5_direct": ("md5_direct_kernel",),
+SASS_FUNCTIONS = {"md5_direct": ("17md5_direct_kernelE",
+                                 "17md5_direct_kernelP",
+                                 "md5_direct_kernel("),
+                  "md5_direct_spans": ("23md5_direct_kernel_spansE",
+                                       "23md5_direct_kernel_spansP",
+                                       "md5_direct_kernel_spans("),
                   "sliding_md5": ("sliding_md5_kernelILi12ELi4EE",
                                   "sliding_md5_kernel<12, 4>"),
                   "sliding_md5 stride 1": ("sliding_md5_kernelILi12ELi1EE",
@@ -376,6 +396,44 @@ def max_abs_err(a, b) -> int:
     diff = (a.view(torch.int32).to(torch.int64) & 0xFFFFFFFF) \
         - (b.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
     return int(diff.abs().max()) if diff.numel() else 0
+
+
+# message lengths of phase 3's spans: MD5's padding edges (the 4-byte
+# length word follows the word-padded data) and the widest CDC chunk
+SPAN_EDGE_LENS = [1, 2, 3, 4, 5, 7, 8, 9, 51, 52, 53, 54, 55, 56, 57, 60,
+                  61, 62, 63, 64, 65, 66, 67, 68, 4095, 4096, 4097, 65536]
+# chunks of each image phase 4 also hashes with the plain spans version
+SPAN_PLAIN_SAMPLE = 256
+
+
+def spans_against_plain(torch, np, img, ends, dev, what: str,
+                        sample=None) -> int:
+    """``md5_spans`` over ``img`` cut at ``ends`` on the card: every
+    digest against ``hashlib``, and those of ``sample`` chunk indices
+    (all by default) against the plain version on the card.  Returns
+    the largest word difference from the plain version."""
+    from repro_torch.core.sai import block_digest_cpu
+    from repro_torch.kernels import md5
+    img = np.frombuffer(img, np.uint8) if isinstance(img, bytes) else img
+    ends = np.asarray(ends, np.int64)
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int64)
+    lens = ends - starts
+    padded = np.pad(img, (0, (-img.size) % 4))
+    words = torch.from_numpy(padded.view("<u4").copy()).to(dev)
+    got = md5.md5_spans(words, torch.from_numpy(starts),
+                        torch.from_numpy(lens))
+    torch.cuda.synchronize()
+    host = got.view(torch.int32).cpu().numpy().astype("<u4")
+    for i, (a, b) in enumerate(zip(starts, ends)):
+        check(host[i].tobytes() == block_digest_cpu(img[a:b].tobytes()),
+              f"{what}: spans digest {i} == hashlib")
+    pick = np.arange(lens.size) if sample is None else np.asarray(sample)
+    want = md5.md5_spans_plain(words, torch.from_numpy(starts[pick]),
+                               torch.from_numpy(lens[pick]))
+    # index as int32: CUDA has no uint32 indexing
+    sub = got.view(torch.int32)[torch.from_numpy(pick).to(dev)]
+    check(words_equal(sub, want), f"{what}: spans kernel == plain")
+    return max_abs_err(sub, want)
 
 
 # f32 flash against the plain version: the JAX package's 2e-5 (atol and
@@ -631,7 +689,8 @@ def phase_kernels(torch, np, dev):
     from repro_torch.core.sai import _cpu_gear
     from repro_torch.kernels import flash_attn, gear, md5, ops, sliding_md5
     rng = np.random.default_rng(1)
-    errs = {"md5_direct": 0, "sliding_md5": 0, "gear": 0, "flash_attn": 0.0,
+    errs = {"md5_direct": 0, "md5_direct_spans": 0, "sliding_md5": 0,
+            "gear": 0, "flash_attn": 0.0,
             "flash_attn_f16": 0.0, "flash_attn_f32": 0.0,
             "flash_tf32_split": 0.0}
     # md5: ragged lens incl. lens == W, one word and zero words; B not a
@@ -654,6 +713,19 @@ def phase_kernels(torch, np, dev):
             check(host[i].astype("<u4").tobytes() == ref.digest(),
                   f"md5 kernel == hashlib, row {i} of {B}x{W}")
         print(f"md5_direct {B}x{W} words: bit-exact vs plain and hashlib")
+    # md5 spans: every edge length starting at every residue mod 4,
+    # neighbours sharing words, the image's last chunk ending off a word
+    for residue in range(4):
+        ends = residue + np.cumsum(SPAN_EDGE_LENS * 2)
+        img = rng.integers(0, 256, int(ends[-1]) + 1, dtype=np.uint8)
+        ends = np.concatenate([[residue] if residue else [], ends,
+                               [img.size]])
+        errs["md5_direct_spans"] = max(errs["md5_direct_spans"],
+                                       spans_against_plain(
+                                           torch, np, img, ends, dev,
+                                           f"spans at residue {residue}"))
+    print(f"md5_direct_spans: {len(SPAN_EDGE_LENS) * 2} edge lengths at "
+          f"every start residue mod 4: bit-exact vs plain and hashlib")
     # sliding: strides 1/2/4 x windows 16/32/48 on a 16 MiB buffer
     buf = rng.integers(0, 256, 16 * MiB, dtype=np.uint8)
     words = torch.from_numpy(buf.view("<u4").copy()).to(dev)[None]
@@ -843,15 +915,18 @@ def fastcdc_plain(torch, np, series):
 def write_read(torch, np, eng, series, ca: str, similarity):
     from repro_torch.core import SAI, SAIConfig, make_store
     from repro_torch.core.sai import block_digest_cpu
+    from repro_torch.kernels import md5
     mgr, nodes = make_store(4, replication=2)
     sai = SAI(mgr, SAIConfig(**CONFIGS[ca]), crystal=eng)
     s0 = eng.snapshot_stats()
     total = sum(len(img) for img in series)
+    rows0 = md5.LAUNCHES.value
     t0 = time.perf_counter()
     futs = [sai.write_async("/ckpt", img) for img in series]
     stats = [f.result(timeout=900) for f in futs]
     torch.cuda.synchronize()
     t_write = time.perf_counter() - t0
+    write_rows = md5.LAUNCHES.value - rows0
     t0 = time.perf_counter()
     back = [sai.read("/ckpt", version=v) for v in range(len(series))]
     torch.cuda.synchronize()
@@ -874,6 +949,8 @@ def write_read(torch, np, eng, series, ca: str, similarity):
            "engine_launches": s1["launches"] - s0["launches"],
            "boundary_strict": s1["boundary_strict"]
            - s0["boundary_strict"],
+           "span_jobs": s1["direct_span_jobs"] - s0["direct_span_jobs"],
+           "write_row_launches": write_rows,
            "blocks_checked": n_checked}
     check([round(x, 4) for x in out["similarity"]] == similarity,
           f"{ca}: similarities {out['similarity']} match {similarity}")
@@ -899,7 +976,8 @@ def phase_main_path(torch, np, series, smi: str):
     eng = CrystalGPU()
     check([str(d) for d in eng.devices] == ["cuda:0"],
           f"engine on cuda:0, got {eng.devices}")
-    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+    counters = {"md5": md5.LAUNCHES, "md5_spans": md5.SPAN_LAUNCHES,
+                "sliding_md5": sliding_md5.LAUNCHES,
                 "gear": gear.LAUNCHES,
                 "boundary_candidates": candidates.LAUNCHES}
     kept = {}
@@ -932,13 +1010,19 @@ def phase_main_path(torch, np, series, smi: str):
               f"out); fusion cap {eng.max_fused_bytes} B")
         check(all(n > 0 for n in launches.values()),
               "every hashing kernel launched on the main path")
+        check(all(kept[ca][3]["span_jobs"] == N_IMAGES
+                  and per[ca]["md5_spans"] > 0
+                  and kept[ca][3]["write_row_launches"] == 0
+                  for ca in CONFIGS),
+              "every write hashes its chunks as one spans job over its "
+              "image, and the writes launch no row kernel")
         check(per["fixed"]["sliding_md5"] == 0
               and per["cdc"]["sliding_md5"] > 0
               and per["cdc-stride1"]["sliding_md5"] > 0
               and per["cdc-gear"]["sliding_md5"] == 0,
               "sliding kernel runs under ca='cdc' only")
         gear_modes = ("cdc-gear", "fastcdc")
-        check(all(per[ca]["gear"] > 0 and per[ca]["md5"] > 0
+        check(all(per[ca]["gear"] > 0 and per[ca]["md5_spans"] > 0
                   for ca in gear_modes)
               and all(per[ca]["gear"] == 0 for ca in CONFIGS
                       if ca not in gear_modes),
@@ -986,6 +1070,21 @@ def phase_main_path(torch, np, series, smi: str):
                   f"from the plain versions")
         print(f"fastcdc chunk ends of all {len(series)} images from the "
               f"engine == from the plain versions")
+        # the spans entry on each image as FastCDC cuts it: every digest
+        # against hashlib, the first and the widest chunks against the
+        # plain version
+        spans_err = 0
+        for v, img in enumerate(series):
+            lens = np.diff(plain_bounds[v], prepend=0)
+            sample = np.unique(np.concatenate([
+                np.arange(min(SPAN_PLAIN_SAMPLE, lens.size)),
+                np.argsort(lens)[-16:], [lens.size - 1]]))
+            spans_err = max(spans_err, spans_against_plain(
+                torch, np, img, plain_bounds[v], torch.device("cuda", 0),
+                f"fastcdc image {v + 1}", sample))
+        print(f"md5_direct_spans on all {len(series)} images as fastcdc "
+              f"cuts them: every digest == hashlib, "
+              f"{SPAN_PLAIN_SAMPLE} + 17 chunks an image == plain")
 
         # sliding hashes of one image against hashlib at sampled offsets,
         # at both strides of the main path
@@ -1044,7 +1143,7 @@ def phase_main_path(torch, np, series, smi: str):
         phase_durable(eng, series[0][:DURABLE_BYTES])
     finally:
         eng.shutdown()
-    return launches, largest, maps
+    return launches, largest, maps, spans_err
 
 
 def phase_durable(eng, img: bytes):
@@ -1116,8 +1215,8 @@ def phase_checkpoint(torch, np, dev):
     mgr, _ = make_store(4, replication=2)
     sai = SAI(mgr, SAIConfig(ca="cdc-gear"), crystal=eng)
     ckpt = CACheckpointer(sai)
-    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
-                "gear": gear.LAUNCHES}
+    counters = {"md5": md5.LAUNCHES, "md5_spans": md5.SPAN_LAUNCHES,
+                "sliding_md5": sliding_md5.LAUNCHES, "gear": gear.LAUNCHES}
     try:
         for c in counters.values():
             c.reset()
@@ -1164,9 +1263,10 @@ def phase_checkpoint(torch, np, dev):
         print(f"checkpoint path kernel launches: {launches}; engine "
               f"{eng.snapshot_stats()['launches']} launches / "
               f"{eng.snapshot_stats()['jobs']} jobs")
-        check(launches["gear"] > 0 and launches["md5"] > 0
-              and launches["sliding_md5"] == 0,
-              "the checkpoint path runs the gear and md5 kernels")
+        check(launches["gear"] > 0 and launches["md5_spans"] > 0
+              and launches["md5"] > 0 and launches["sliding_md5"] == 0,
+              "the checkpoint path runs the gear kernel, md5's spans entry "
+              "for the saves and its row entry for the verified restores")
     finally:
         sai.close()
         eng.shutdown()
@@ -1223,6 +1323,70 @@ def time_two_rules(torch, flush, hashes):
           f"{b_ms:.4f} ms (bytes: {4 * n} B of hashes read once at "
           f"3.35 TB/s), {b_ms / ms:.1%} of it; plain {plain_ms:.1f} ms, "
           f"exact")
+
+
+def time_spans(torch, np, dev, flush, bound, clock_hz, cycles_per_round,
+               errs):
+    """``md5_spans`` on one 256 MiB image as the benchmark's LBFS rule
+    (cas-cdc) cuts it, in one launch, beside ``md5_words`` on the same
+    chunks' ``pack_blocks`` rows (the write path before the spans
+    entry), the plain version on its first ``SPAN_PLAIN_TIMED`` chunks,
+    and the bound: the larger of the work's (instructions and bytes) and
+    the chain of the longest chunk's dependent rounds."""
+    from repro_torch.core import SAI, CrystalGPU, SAIConfig, make_store
+    from repro_torch.core.sai import pack_blocks
+    from repro_torch.kernels import md5
+    img = np.random.default_rng(4).integers(0, 256, IMAGE_BYTES,
+                                            dtype=np.uint8)
+    eng = CrystalGPU(devices=[dev])
+    try:
+        ends = np.asarray(SAI(make_store(4, replication=2)[0],
+                              SAIConfig(**CAS_CDC), crystal=eng)
+                          ._boundaries(img.tobytes()), np.int64)
+    finally:
+        eng.shutdown()
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int64)
+    lens = ends - starts
+    n = lens.size
+    image = torch.from_numpy(img.view("<u4")).to(dev)
+    st, ln = torch.from_numpy(starts), torch.from_numpy(lens)
+    ms = time_cuda(lambda: md5.md5_spans(image, st, ln), flush)
+    got = md5.md5_spans(image, st, ln)
+    errs["md5_direct_spans"] = max(errs["md5_direct_spans"],
+                                   spans_against_plain(
+                                       torch, np, img, ends, dev,
+                                       "cas-cdc image",
+                                       np.arange(SPAN_PLAIN_TIMED)))
+    sel = torch.arange(SPAN_PLAIN_TIMED)
+    plain_ms = time_cuda(lambda: md5.md5_spans_plain(image, st[sel],
+                                                     ln[sel]),
+                         flush, repeats=1, warmup=0)
+    rows, row_lens = pack_blocks([img[a:b].tobytes()
+                                  for a, b in zip(starts, ends)])
+    dev_rows = torch.from_numpy(rows.view("<u4")).to(dev)
+    lens_w = torch.from_numpy((row_lens // 4).astype(np.int32))
+    del rows
+    rows_ms = time_cuda(lambda: md5.md5_words(dev_rows, lens_w), flush)
+    check(words_equal(md5.md5_words(dev_rows, lens_w), got),
+          "md5_words on the packed rows == md5_spans on the image")
+    comp = ((lens + 3) // 4 + 1 + 18) // 16
+    b_ms, b_by = bound(int(comp.sum()), ops_per_compression(),
+                       IMAGE_BYTES + 32 * n)
+    chain_ms = int(comp.max()) * 64 * cycles_per_round / clock_hz * 1e3
+    if chain_ms > b_ms:
+        b_ms, b_by = chain_ms, "the longest chunk's chain"
+    shape = (f"{IMAGE_BYTES // MiB} MiB cut by LBFS into {n} chunks "
+             f"(mean {IMAGE_BYTES / n:.0f} B, widest {int(lens.max())} B)")
+    print(f"md5_direct_spans: {ms:.3f} ms at {shape}; md5_words on the "
+          f"same chunks' pack_blocks rows {tuple(dev_rows.shape)} "
+          f"{rows_ms:.3f} ms ({4 * dev_rows.numel()} B); bound "
+          f"{b_ms:.4f} ms ({b_by}; work {int(comp.sum())} compressions), "
+          f"{b_ms / ms:.1%} of it; plain {plain_ms:.1f} ms on its first "
+          f"{SPAN_PLAIN_TIMED} chunks, bit-exact; library: none")
+    del dev_rows, image, got
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "shape": shape, "rows_ms": rows_ms,
+            "library_ms": None}
 
 
 def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
@@ -1309,6 +1473,8 @@ def phase_times(torch, np, dev, sm_clocks, pipes, cycles_per_round, errs,
           f"at {clock_hz / 1e6:.0f} MHz); the kernel takes "
           f"{ms / chain_ms:.2f} x it")
     del words, got
+    out["md5_direct_spans"] = time_spans(torch, np, dev, flush, bound,
+                                         clock_hz, cycles_per_round, errs)
     # sliding: one 256 MiB image, window 48, at stride 4 (the entry of
     # the kernels line) and at stride 1, each against the plain version
     L, ww = IMAGE_BYTES // 4, 12
@@ -1618,8 +1784,8 @@ def phase_serving(torch, np, smi: str, image_bytes: int = GATEWAY_BYTES):
                                    GatewayServer, StorageGateway,
                                    TokenAuthenticator, mint_token)
     t_phase = time.perf_counter()
-    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
-                "gear": gear.LAUNCHES}
+    counters = {"md5": md5.LAUNCHES, "md5_spans": md5.SPAN_LAUNCHES,
+                "sliding_md5": sliding_md5.LAUNCHES, "gear": gear.LAUNCHES}
     secrets = {name: f"secret-{name}".encode() for name, _, _ in TENANTS}
     mgr, nodes = make_store(4, replication=2)
     gw = StorageGateway(mgr, config=GatewayConfig(
@@ -1653,8 +1819,11 @@ def phase_serving(torch, np, smi: str, image_bytes: int = GATEWAY_BYTES):
               f"launches / {jobs} jobs; kernel launches {launches}")
         check(fused < jobs, f"cross-client coalescing: {fused} launches < "
               f"{jobs} jobs")
-        check(launches["gear"] > 0 and launches["md5"] > 0,
-              "the gateway's tenants ran the gear and md5 kernels")
+        check(launches["gear"] > 0 and launches["md5_spans"] > 0
+              and launches["md5"] > 0,
+              "the gateway's tenants ran the gear kernel, md5's spans "
+              "entry on their writes and its row entry on their verified "
+              "reads")
         n, paused = hist_percentiles(h0, h1)
 
         # each tenant's similarity == an in-process SAI's on the same
@@ -1888,8 +2057,8 @@ def phase_mesh(torch, np, images, maps, smi: str, dev=None):
         return np.stack([np.frombuffer(hashlib.md5(r.tobytes()).digest(),
                                        np.uint8) for r in rows])
 
-    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
-                "gear": gear.LAUNCHES}
+    counters = {"md5_spans": md5.SPAN_LAUNCHES,
+                "sliding_md5": sliding_md5.LAUNCHES, "gear": gear.LAUNCHES}
     one = CrystalGPU(devices=[dev])
     mesh = CrystalGPU(devices=[dev] * MESH_MANAGERS)
     try:
@@ -1897,6 +2066,7 @@ def phase_mesh(torch, np, images, maps, smi: str, dev=None):
         # managers' streams; block maps and digests as one manager's
         for c in counters.values():
             c.reset()
+        rows0 = md5.LAUNCHES.value
         total = sum(len(img) for img in images)
         for ca in MESH_CONFIGS:
             rates = {}
@@ -1929,9 +2099,12 @@ def phase_mesh(torch, np, images, maps, smi: str, dev=None):
                   f"[{smi}]; block maps identical; {sharded} sharded jobs "
                   f"in {shards} shards, managers with jobs {busy}")
         launches = {n: c.value for n, c in counters.items()}
-        print(f"phase 8 (a) kernel launches: {launches}")
-        check(all(n > 0 for n in launches.values()),
-              "every hashing kernel launched in phase 8 (a)")
+        print(f"phase 8 (a) kernel launches: {launches}, md5 rows "
+              f"{md5.LAUNCHES.value - rows0}")
+        check(all(n > 0 for n in launches.values())
+              and md5.LAUNCHES.value == rows0,
+              "every hashing kernel the writes use launched in phase 8 (a), "
+              "md5 as spans and never as rows")
 
         # (b) four independent direct jobs at once: one manager's stream
         # against four
@@ -2412,7 +2585,8 @@ def phase_lm(torch, np, smi: str):
     check(torch.get_float32_matmul_precision() == "highest",
           "f32 matmuls in full f32 (no TF32)")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 off")
-    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+    counters = {"md5": md5.LAUNCHES, "md5_spans": md5.SPAN_LAUNCHES,
+                "sliding_md5": sliding_md5.LAUNCHES,
                 "gear": gear.LAUNCHES, "flash_attn": flash_attn.LAUNCHES,
                 "flash_tf32_split": flash_attn.SPLIT_LAUNCHES}
     for c in counters.values():
@@ -2790,7 +2964,8 @@ def phase_train(torch, np, smi: str):
     print("== phase 10: training (minicpm-2b at full width and depth, "
           "card against CPU, checkpoints and a restart on the card)")
     t_phase = time.perf_counter()
-    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+    counters = {"md5": md5.LAUNCHES, "md5_spans": md5.SPAN_LAUNCHES,
+                "sliding_md5": sliding_md5.LAUNCHES,
                 "gear": gear.LAUNCHES, "flash_attn": flash_attn.LAUNCHES,
                 "flash_tf32_split": flash_attn.SPLIT_LAUNCHES}
     for c in counters.values():
@@ -2943,8 +3118,10 @@ def phase_train(torch, np, smi: str):
         eng.shutdown()
     launches = {k: c.value for k, c in counters.items()}
     print(f"phase 10 (c) kernel launches: {launches}")
-    check(launches["gear"] > 0 and launches["md5"] > 0,
-          "(c) gear and md5_direct launched by the checkpoints")
+    check(launches["gear"] > 0 and launches["md5_spans"] > 0
+          and launches["md5"] > 0,
+          "(c) gear, md5's spans entry (saves) and md5_direct (verified "
+          "restores) launched by the checkpoints")
     del out, saved
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
 
@@ -3021,7 +3198,8 @@ def phase_dist(torch, np, smi: str):
     print("== phase 11: distributed slice (DTensor train step and int8 "
           "cross-pod sync on a one-card NCCL mesh)")
     t_phase = time.perf_counter()
-    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+    counters = {"md5": md5.LAUNCHES, "md5_spans": md5.SPAN_LAUNCHES,
+                "sliding_md5": sliding_md5.LAUNCHES,
                 "gear": gear.LAUNCHES, "flash_attn": flash_attn.LAUNCHES,
                 "flash_tf32_split": flash_attn.SPLIT_LAUNCHES}
     for c in counters.values():
@@ -3310,7 +3488,8 @@ def phase_dryrun(torch, np, smi: str):
           "placeholder ranks, the estimator against the card, remat "
           "policies, sharded serving)")
     t_phase = time.perf_counter()
-    counters = {"md5": md5.LAUNCHES, "sliding_md5": sliding_md5.LAUNCHES,
+    counters = {"md5": md5.LAUNCHES, "md5_spans": md5.SPAN_LAUNCHES,
+                "sliding_md5": sliding_md5.LAUNCHES,
                 "gear": gear.LAUNCHES, "flash_attn": flash_attn.LAUNCHES,
                 "flash_tf32_split": flash_attn.SPLIT_LAUNCHES}
     for c in counters.values():
@@ -3463,7 +3642,9 @@ def main() -> int:
     print(f"checkpoint series: {N_IMAGES} x {IMAGE_BYTES // MiB} MiB "
           f"(seed 0, change_frac 0.15) made in "
           f"{time.perf_counter() - t0:.1f} s")
-    launches, gear_largest, maps = phase_main_path(torch, np, series, smi)
+    launches, gear_largest, maps, spans_err = phase_main_path(torch, np,
+                                                              series, smi)
+    errs["md5_direct_spans"] = max(errs["md5_direct_spans"], spans_err)
     mesh_images = series[:MESH_IMAGES]
     del series
     phase_checkpoint(torch, np, dev)
@@ -3483,6 +3664,9 @@ def main() -> int:
     kernels = []
     for name, counter, source, replaces in [
             ("md5_direct", "md5", "src/repro_torch/kernels/csrc/md5.cu",
+             "src/repro/kernels/md5.py:84"),
+            ("md5_direct_spans", "md5_spans",
+             "src/repro_torch/kernels/csrc/md5.cu",
              "src/repro/kernels/md5.py:84"),
             ("sliding_md5", "sliding_md5",
              "src/repro_torch/kernels/csrc/sliding_md5.cu",

@@ -96,6 +96,26 @@ Job normal forms
               padded to the widest row in the batch (digests are
               length-bound, so bytes past a row's length never change
               them).
+  'direct' spans: data = flat uint8 image and meta['ends'] = [n]
+              ascending chunk ends (bytes, the last at most the image's
+              length); result [n, 16] uint8 block digests
+              ``MD5(pad4(chunk) || u32_le(len))`` of the chunks between
+              them, the digests the row form gives for ``pack_blocks``
+              rows of the same chunks.  The image is copied once into
+              pinned staging and sent to the card once, and the kernel
+              reads each chunk where it lies (``md5.md5_spans``); only
+              the digests come back.  Spans jobs fuse only with each
+              other: their images lie end to end in one staging buffer,
+              each job's ends offset by the bytes before it.  Their
+              bytes, for the stage stamps, the stats and the cost model,
+              are the image's; the cost model learns them under their
+              own kind, ``'direct-spans'`` (a row job's bytes are its
+              padded rows), and the fusion policy's byte cap, shared by
+              every kind, caps their summed images.  A whale image is
+              sharded across a mesh by byte-balanced chunk ranges
+              (``ops.shard_span_ranges``).  ``direct_span_jobs`` counts
+              them, and ``direct_staged_bytes`` the bytes copied into
+              direct staging, rows and images alike.
   'sliding' : data = flat uint8 buffer, meta {'window', 'stride'};
               result [n_offsets] uint32 window hashes.
   'gear'    : data = flat uint8 buffer, meta {'version'} (1, 2 or 3,
@@ -213,9 +233,12 @@ class Job:                             # numpy fields, and the manager's
     result: Any = None
     error: Optional[BaseException] = None
     done: threading.Event = field(default_factory=threading.Event)
-    # normalized 'direct' payload (set at submit time)
+    # normalized 'direct' payload (set at submit time): rows and their
+    # byte lengths, or (spans form) the chunk ends in ``data`` and the
+    # chunks' byte lengths
     rows: Optional[np.ndarray] = None
     lens: Optional[np.ndarray] = None
+    ends: Optional[np.ndarray] = None
     # jobs with equal fuse keys may share one kernel launch
     fuse_key: tuple = ()
     # 'fg' = interactive client traffic; 'batch' = throughput traffic
@@ -252,7 +275,16 @@ class Job:                             # numpy fields, and the manager's
 
     @property
     def padded_bytes(self) -> int:
+        if self.ends is not None:           # spans: the image, staged once
+            return self.staged_width
         return self.n_rows * max(self.staged_width, 1)
+
+    @property
+    def cost_kind(self) -> str:
+        """The cost model's key: a spans job's bytes are its image and a
+        row job's its padded rows, so each form learns its own seconds
+        per byte."""
+        return "direct-spans" if self.ends is not None else self.kind
 
 
 def _normalize_direct(data: np.ndarray, meta: Dict[str, Any]):
@@ -627,7 +659,8 @@ class CrystalGPU:
             ("jobs", "bytes", "launches", "coalesced", "max_fused",
              "scrub_jobs", "scrub_launches", "scrub_coalesced",
              "sharded_jobs", "shards", "manager_restarts",
-             "boundary_jobs", "boundary_candidates", "boundary_strict"))
+             "boundary_jobs", "boundary_candidates", "boundary_strict",
+             "direct_span_jobs", "direct_staged_bytes"))
         # test hooks: _fault_hook(dev_index, batch) runs after a batch is
         # drained but OUTSIDE the launch try (an exception there kills
         # the manager thread -> crash-recovery path); _launch_hook runs
@@ -696,7 +729,20 @@ class CrystalGPU:
                   lens: Optional[np.ndarray] = None) -> Job:
         job = Job(kind=kind, data=data, meta=meta, callback=callback,
                   lane=lane)
-        if kind == "direct":
+        if kind == "direct" and "ends" in meta:
+            ends = np.asarray(meta["ends"], np.int64)
+            job.data = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+            if ends.ndim != 1 or (ends.size and (
+                    ends[0] < 0 or ends[-1] > job.data.size
+                    or np.any(np.diff(ends) < 0))):
+                raise ValueError("meta['ends'] must be ascending chunk ends "
+                                 "inside the image")
+            job.ends = ends
+            job.lens = np.diff(ends, prepend=0)
+            job.fuse_key = ("direct", "spans")
+            job.n_rows = ends.size
+            job.staged_width = (job.data.size + 3) // 4 * 4
+        elif kind == "direct":
             if rows is None:
                 rows, lens = _normalize_direct(job.data, job.meta)
             job.rows, job.lens = rows, lens
@@ -737,7 +783,8 @@ class CrystalGPU:
         disables the affinity pull (shard children were split to run on
         *different* devices — affinity would fuse them right back)."""
         with self._lock:
-            job.cost_est = self.cost.estimate(job.kind, job.padded_bytes)
+            job.cost_est = self.cost.estimate(job.cost_kind,
+                                          job.padded_bytes)
             states = self._dev_states
             cands = [s for s in states if s.index != exclude] or states
             if not cands:
@@ -780,6 +827,10 @@ class CrystalGPU:
             if job.n_rows < 2:
                 return None
             k = min(k, job.n_rows)
+            if job.ends is not None:
+                plan = [("spans", a, b, 0)
+                        for a, b in ops.shard_span_ranges(job.ends, k)]
+                return plan if len(plan) > 1 else None
             return [("rows", a, b, 0)
                     for a, b in ops.shard_row_ranges(job.n_rows, k)]
         if job.kind in ("sliding", "gear"):
@@ -815,8 +866,14 @@ class CrystalGPU:
             else parent.data.reshape(-1)
         children = []
         for i, spec in enumerate(plan):
-            _, a, b, _ = spec
-            if parent.kind == "direct":
+            how, a, b, _ = spec
+            if how == "spans":             # chunks a..b-1 of the image
+                lo = int(parent.ends[a - 1]) if a else 0
+                child = self._make_job(
+                    "direct", parent.data[lo:int(parent.ends[b - 1])],
+                    {**parent.meta, "ends": parent.ends[a:b] - lo},
+                    child_cb(i), parent.lane)
+            elif parent.kind == "direct":
                 child = self._make_job(
                     "direct", parent.rows[a:b], dict(parent.meta),
                     child_cb(i), parent.lane,
@@ -983,6 +1040,7 @@ class CrystalGPU:
                 and first.kind in ("direct", "sliding", "gear")):
             return batch, None
         rows, width = first.n_rows, first.staged_width
+        staged = first.padded_bytes
         max_rows = self.policy.cur_rows
         max_bytes = self.policy.cur_bytes
         deadline = time.perf_counter() + self.coalesce_window_s
@@ -1003,6 +1061,12 @@ class CrystalGPU:
             self._note_picked(dev, nxt)
             if nxt.fuse_key != first.fuse_key:
                 return batch, nxt
+            if nxt.ends is not None:      # spans: images end to end
+                if staged + nxt.padded_bytes > max_bytes:
+                    return batch, nxt
+                staged += nxt.padded_bytes
+                batch.append(nxt)
+                continue
             # cap the fused launch by its actual padded staging matrix
             # (every row pads to the batch-max width) and, for direct,
             # by total rows — not just by job count: many multi-row or
@@ -1058,7 +1122,9 @@ class CrystalGPU:
                     self.running.extend(batch)
                 if self._launch_hook is not None:
                     self._launch_hook(dev.index, batch)
-                if job.kind == "direct":
+                if job.ends is not None:
+                    self._execute_spans(dev, slot, batch)
+                elif job.kind == "direct":
                     self._execute_direct(dev, slot, batch)
                 else:
                     self._execute_stream_batch(dev, slot, batch)
@@ -1093,7 +1159,8 @@ class CrystalGPU:
         else:
             actual = sum(int(j.data.size) for j in batch)
             n_rows = len(batch)
-        wbucket = max(j.staged_width for j in batch)
+        wbucket = 1 << (max(max(j.staged_width for j in batch), 1)
+                        - 1).bit_length()
         with self._lock:
             for j in batch:
                 if j in self.running:
@@ -1103,12 +1170,13 @@ class CrystalGPU:
                 dev.pending_s = max(dev.pending_s - j.cost_est, 0.0)
             if failed or kind not in ("direct", "sliding", "gear"):
                 return
-            est = max(self.cost.estimate(kind, padded), 1e-9)
-            self.cost.observe(kind, padded, wall_s)
-            oh, spb = self.cost.params(kind)
+            ckind = batch[0].cost_kind
+            est = max(self.cost.estimate(ckind, padded), 1e-9)
+            self.cost.observe(ckind, padded, wall_s)
+            oh, spb = self.cost.params(ckind)
             self.policy.observe(padded, actual, n_rows, wall_s, oh, spb)
             dev.launch_hist.record(wall_s)
-            key = (kind, wbucket)
+            key = (ckind, wbucket)
             prev = dev.ewma_bucket_s.get(key)
             dev.ewma_bucket_s[key] = wall_s if prev is None \
                 else 0.75 * prev + 0.25 * wall_s
@@ -1195,6 +1263,8 @@ class CrystalGPU:
             rows[r:r + n, :w] = j.rows
             lens[r:r + n] = j.lens
             r += n
+        self.stats.inc("direct_staged_bytes",
+                       sum(j.rows.size for j in batch))
         lens_w = torch.from_numpy((lens // 4).astype(np.int32))
         with dev.on_device():
             dev_words = staging.view(torch.uint32).to(dev.device,
@@ -1215,6 +1285,50 @@ class CrystalGPU:
             j.t_staged, j.t_waited = t_staged, t_waited   # batch-wide
             r += n
         self._account(dev, len(batch), int(np.sum(lens)),
+                      sum(j.lane == "scrub" for j in batch))
+
+    # -- fused spans batch ---------------------------------------------
+    def _execute_spans(self, dev: _DeviceState, slot: dict,
+                       batch: List[Job]):
+        """Hash a burst of spans jobs in ONE launch: their images copied
+        end to end into one pinned staging buffer, a zero tail to a word
+        multiple, sent to the card once; each job's chunk starts and
+        lengths offset by the bytes before its image."""
+        offs = np.cumsum([0] + [j.data.size for j in batch])
+        n_words = (int(offs[-1]) + 3) // 4
+        staging = self._staging_view(slot, "spans", (max(n_words, 1) * 4,),
+                                     torch.uint8)
+        image = staging.numpy()
+        for j, off in zip(batch, offs):
+            image[off:off + j.data.size] = j.data
+        image[offs[-1]:] = 0
+        n = sum(j.n_rows for j in batch)
+        spans = self._staging_view(slot, "span_idx", (2, n), torch.int64)
+        idx = spans.numpy()
+        r = 0
+        for j, off in zip(batch, offs):
+            k = j.n_rows
+            idx[0, r:r + k] = j.ends - j.lens + off
+            idx[1, r:r + k] = j.lens
+            r += k
+        self.stats.inc("direct_staged_bytes", int(offs[-1]))
+        self.stats.inc("direct_span_jobs", len(batch))
+        with dev.on_device():
+            dev_words = staging.view(torch.uint32).to(dev.device,
+                                                      non_blocking=True)
+            self._stage_sync(dev)
+            t_staged = time.perf_counter()
+            dig = md5.md5_spans(dev_words, spans[0], spans[1],
+                                stream=dev.stream)
+            self._stage_sync(dev)
+            host = ops.digest_bytes(dig)
+        t_waited = time.perf_counter()
+        r = 0
+        for j in batch:
+            j.result = host[r:r + j.n_rows].copy()
+            j.t_staged, j.t_waited = t_staged, t_waited   # batch-wide
+            r += j.n_rows
+        self._account(dev, len(batch), int(offs[-1]),
                       sum(j.lane == "scrub" for j in batch))
 
     # -- fused streaming batch (sliding / gear) ------------------------

@@ -344,19 +344,15 @@ class SAI:
     def _pack_chunks(self, chunks: List[bytes]):
         return pack_blocks(chunks)
 
-    def _submit_hash(self, chunks: List[bytes],
-                     trace: Optional[Trace] = None) -> _HashHandle:
-        """Start hashing ``chunks``; non-blocking on the engine path.
-        ``trace`` takes one sai/hash/pack span per packed group.
-
-        A whale submission (total bytes past twice the engine's shard
-        threshold) splits into contiguous chunk groups packed and
-        submitted independently: each group pads only to its own widest
-        chunk (less padding than one global-width pack), hashing of
-        group i overlaps the packing of group i+1, and the engine's
-        load-aware dispatch spreads the groups across the device mesh.
-        Digest order is preserved — groups are contiguous and the
-        handle concatenates them in submission order."""
+    def _submit_hash(self, chunks: List[bytes]) -> _HashHandle:
+        """Start hashing separate blocks (read-verify, refetch); non-
+        blocking on the engine path.  Each group of ``_shard_groups`` is
+        packed into rows (``pack_blocks``) and submitted as one row job:
+        it pads only to its own widest chunk, hashing of group i overlaps
+        the packing of group i+1, and the engine's load-aware dispatch
+        spreads the groups across the device mesh.  Digest order is
+        preserved — groups are contiguous and the handle concatenates
+        them in submission order."""
         if not chunks:
             return _HashHandle(digests=[])
         if self.cfg.hasher == "cpu":
@@ -365,14 +361,36 @@ class SAI:
         eng = self.engine
         jobs = []
         for lo, hi in self._shard_groups(chunks, eng):
-            t0 = time.perf_counter()
             rows, lens = self._pack_chunks(chunks[lo:hi])
-            if trace is not None:
-                trace.add_span("sai/hash/pack", t0, time.perf_counter(),
-                               "sai/hash", rows=rows.shape[0])
             jobs.append(eng.submit("direct", rows, {"lens": lens},
                                    lane=self.cfg.lane))
         return _HashHandle(jobs=jobs)
+
+    def _submit_spans(self, data: bytes, ends: List[int],
+                      chunks: List[bytes],
+                      trace: Optional[Trace] = None) -> _HashHandle:
+        """Start hashing one write's ``chunks``, cut from ``data`` at
+        ``ends``; non-blocking on the engine path.  On the engine the
+        write is one spans job over its own image: the engine copies the
+        image once and the kernel reads each chunk where it lies, so no
+        row is packed, and the engine shards a whale image across a
+        device mesh itself (the groups of ``_shard_groups`` saved
+        padding only for rows).  ``hasher='cpu'`` hashes ``chunks`` with
+        ``hashlib``.  ``trace`` takes one sai/hash/pack span, the job's
+        preparation (meta ``chunks``, ``bytes``, and ``rows``, the
+        digests the job returns, as when each chunk was a row)."""
+        if self.cfg.hasher == "cpu" or not ends:
+            return self._submit_hash(chunks)
+        t0 = time.perf_counter()
+        image = np.frombuffer(data, np.uint8)
+        ends = np.asarray(ends, np.int64)
+        if trace is not None:
+            trace.add_span("sai/hash/pack", t0, time.perf_counter(),
+                           "sai/hash", chunks=int(ends.size),
+                           bytes=int(ends[-1]), rows=int(ends.size))
+        return _HashHandle(jobs=[self.engine.submit(
+            "direct", image[:int(ends[-1])], {"ends": ends},
+            lane=self.cfg.lane)])
 
     @staticmethod
     def _shard_groups(chunks: List[bytes], eng) -> List[tuple]:
@@ -611,8 +629,9 @@ class SAI:
         if cfg.ca == "none":
             return self._write_raw(path, data)
         stats = WriteStats(total_bytes=len(data))
-        chunks = chunking.split_chunks(data, self._boundaries(data))
-        digests = self._submit_hash(chunks).wait()
+        bounds = self._boundaries(data)
+        chunks = chunking.split_chunks(data, bounds)
+        digests = self._submit_spans(data, bounds, chunks).wait()
         return self._store_chunks(path, len(data), chunks, digests, stats)
 
     def write_async(self, path: str, data: bytes,
@@ -721,7 +740,8 @@ class SAI:
                                    "sai/chunk", chunks=len(chunks))
                     trace.add_span("sai/chunk", t0, t1,
                                    chunks=len(chunks))
-                handle = self._submit_hash(chunks, trace)  # non-blocking (gpu)
+                handle = self._submit_spans(data, bounds, chunks,
+                                            trace)  # non-blocking (gpu)
                 store_q.put((fut, path, data, chunks, handle, t1, trace))
             except BaseException as e:
                 fut._fail(e)
@@ -1123,9 +1143,11 @@ def pack_blocks(chunks: List[bytes]):
     u32_le(byte_length) ): the length trailer disambiguates chunks
     that differ only in trailing zero padding (CDC boundaries are
     byte-exact).  Row width is bucketed to a power of two to bound
-    jit retraces across writes with ragged max-chunk lengths.  Shared
-    by the SAI write/read paths and the node runtime's scrub/repair
-    verification."""
+    jit retraces across writes with ragged max-chunk lengths.  Serves
+    callers that hold separate blocks: the SAI's read-verify and
+    refetch and the node runtime's scrub/repair verification (a write
+    holds one image and its chunk ends, and hashes them as spans,
+    ``SAI._submit_spans``)."""
     seg = max(len(c) for c in chunks)
     seg = (seg + 3) // 4 * 4 + 4
     seg = 1 << (seg - 1).bit_length()

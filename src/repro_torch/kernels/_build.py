@@ -36,6 +36,7 @@ _c_uint = ctypes.c_uint
 SIGNATURES = {
     "md5_direct_launch": [_c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll,
                           _c_void_p],
+    "md5_spans_launch": [_c_void_p] * 4 + [_c_int, _c_void_p],
     "sliding_md5_launch": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int,
                            _c_int, _c_void_p],
     "gear_launch": [_c_void_p, _c_void_p, _c_int, _c_ll, _c_void_p],

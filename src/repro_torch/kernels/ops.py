@@ -175,6 +175,21 @@ def shard_row_ranges(n_rows: int, n_shards: int):
     return ranges
 
 
+def shard_span_ranges(ends, n_shards: int):
+    """Contiguous ``[start, stop)`` chunk-index ranges of about equal
+    bytes covering the chunks ending at ``ends`` (ascending byte ends) —
+    the per-device sub-launch split of a whale spans job.  Each range
+    holds at least one chunk, so a few large chunks give fewer
+    ranges."""
+    ends = np.asarray(ends, np.int64)
+    n = int(ends.size)
+    k = max(1, min(int(n_shards), n))
+    total = int(ends[-1]) if n else 0
+    cuts = np.searchsorted(ends, [total * i / k for i in range(1, k)]) + 1
+    bounds = sorted({0, n} | {min(max(int(c), 1), n) for c in cuts})
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
 def stream_shard_plan(n_bytes: int, kind: str, n_shards: int,
                       window: int = 48, stride: int = 4):
     """Byte-slice plan ``[(start, stop, n_drop), ...]`` splitting one

@@ -5,7 +5,8 @@ flash attention against its plain version (f32 within the JAX package's
 derived from their rounding), the f32 flash
 kernel's TF32 pre-pass against its plain version bit for bit, the
 boundary-candidate kernel under one rule and under two (FastCDC's strict
-and loose masks) against its plain version, two managers
+and loose masks) against its plain version, the direct MD5's spans entry
+against ``hashlib``, its plain version and the row entry, two managers
 sharing one card through their own streams, and a whale job sharded across
 four managers of one card.  Every test here needs an
 NVIDIA GPU and ``nvcc``; without them it skips.  Run on a GPU machine with
@@ -268,6 +269,131 @@ def test_fastcdc_write_on_the_card_equals_cpu(cuda):
     assert st["boundary_strict"] == np.count_nonzero((h & MASK_S) == 0)
     assert st["boundary_candidates"] == np.count_nonzero(
         ((h & MASK_S) == 0) | ((h & MASK_L) == 0))
+
+
+# message lengths at MD5's padding edges and 64 KiB, the widest chunk of
+# the benchmark's CDC configurations
+SPAN_LENS = [1, 2, 3, 4, 5, 7, 8, 9, 51, 52, 53, 54, 55, 56, 57, 60, 61, 62,
+             63, 64, 65, 66, 67, 68, 4095, 4096, 4097, 65535, 65536, 65537]
+
+
+def _span_digests(out: torch.Tensor) -> list:
+    host = out.view(torch.int32).cpu().numpy().astype("<u4")
+    return [host[i].tobytes() for i in range(host.shape[0])]
+
+
+def _image_words(img: np.ndarray, dev) -> torch.Tensor:
+    padded = np.pad(img, (0, (-img.size) % 4))
+    return torch.from_numpy(padded.view("<u4").copy()).to(dev)
+
+
+def _hold_spans(img: np.ndarray, ends: np.ndarray, dev, rows: bool = True):
+    """The spans entry over ``img`` cut at ``ends``, bit for bit against
+    hashlib, its plain version (a sample of chunks) and md5_words on the
+    chunks' pack_blocks rows."""
+    from repro_torch.core.sai import block_digest_cpu, pack_blocks
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int64)
+    lens = (ends - starts).astype(np.int64)
+    words = _image_words(img, dev)
+    before = md5.SPAN_LAUNCHES.value
+    got = md5.md5_spans(words, torch.from_numpy(starts),
+                        torch.from_numpy(lens))
+    torch.cuda.synchronize()
+    assert md5.SPAN_LAUNCHES.value == before + 1
+    digests = _span_digests(got)
+    chunks = [img[a:b].tobytes() for a, b in zip(starts, ends)]
+    assert digests == [block_digest_cpu(c) for c in chunks]
+    pick = np.unique(np.concatenate([np.arange(min(64, lens.size)),
+                                     np.argsort(lens)[-8:],
+                                     [lens.size - 1]]))
+    plain = md5.md5_spans_plain(words, torch.from_numpy(starts[pick]),
+                                torch.from_numpy(lens[pick]))
+    assert _span_digests(plain) == [digests[i] for i in pick]
+    if rows:
+        packed, row_lens = pack_blocks(chunks)
+        dev_rows = torch.from_numpy(packed.view("<u4")).to(dev)
+        want = md5.md5_words(dev_rows, torch.from_numpy(
+            (row_lens // 4).astype(np.int32)))
+        assert digests == _span_digests(want)
+
+
+@pytest.mark.parametrize("residue", [0, 1, 2, 3])
+def test_md5_spans_kernel_at_every_residue(cuda, rng, residue):
+    """Starts at each residue mod 4, every edge length, neighbours
+    sharing a word, the last chunk ending off a word at the image's
+    end."""
+    ends = residue + np.cumsum(SPAN_LENS)
+    img = rng.integers(0, 256, int(ends[-1]), dtype=np.uint8)
+    ends = np.concatenate([[residue], ends]) if residue else ends
+    _hold_spans(img, ends, cuda)
+    # the image's last chunk ends 1-3 bytes into its last word
+    for extra in (1, 2, 3):
+        tail = rng.integers(0, 256, 4096 + extra, dtype=np.uint8)
+        _hold_spans(tail, np.array([5, 2049, tail.size]), cuda)
+
+
+@pytest.mark.parametrize("cell", ["cas-cdc", "cas-gear"])
+def test_md5_spans_kernel_on_a_256_mib_image_cut_by_a_cell_rule(cuda,
+                                                                cell):
+    """One 256 MiB image of random bytes cut by the benchmark's LBFS
+    (cas-cdc) or FastCDC (cas-gear) rule on the card."""
+    img = np.random.default_rng(5).integers(0, 256, 256 << 20,
+                                            dtype=np.uint8)
+    cfg = dict(ca="cdc", window=48, stride=1, avg_chunk=8192,
+               min_chunk=2048, max_chunk=65536) if cell == "cas-cdc" \
+        else dict(ca="fastcdc", avg_chunk=8192, min_chunk=2048,
+                  max_chunk=65536, mask_s=MASK_S, mask_l=MASK_L)
+    eng = CrystalGPU(devices=[cuda])
+    try:
+        ends = np.asarray(SAI(make_store(4, replication=2)[0],
+                              SAIConfig(**cfg), crystal=eng)
+                          ._boundaries(img.tobytes()), np.int64)
+    finally:
+        eng.shutdown()
+    assert ends[-1] == img.size and ends.size > 20000
+    _hold_spans(img, ends, cuda)
+
+
+def test_engine_spans_on_the_card_equal_rows_and_cpu_writes(cuda, rng):
+    """Spans jobs fused on the card equal the row jobs of the same
+    chunks; writes through the card's engine give the block maps of
+    hasher='cpu', launching the spans entry and no row launch."""
+    from repro_torch.core.sai import pack_blocks
+    eng = CrystalGPU(devices=[cuda], coalesce_window_s=0.2)
+    try:
+        images = []
+        for _ in range(4):
+            ends = np.cumsum(rng.integers(1, 70000, 50))
+            images.append((rng.integers(0, 256, int(ends[-1]),
+                                        dtype=np.uint8), ends))
+        spans = [eng.submit("direct", img, {"ends": ends})
+                 for img, ends in images]
+        for job, (img, ends) in zip(spans, images):
+            rows, lens = pack_blocks([c.tobytes()
+                                      for c in np.split(img, ends[:-1])])
+            np.testing.assert_array_equal(
+                job.wait(), eng.submit("direct", rows,
+                                       {"lens": lens}).wait())
+        cfg = dict(ca="fastcdc", avg_chunk=8192, min_chunk=2048,
+                   max_chunk=65536, mask_s=MASK_S, mask_l=MASK_L)
+        data = [rng.integers(0, 256, 8 << 20, dtype=np.uint8).tobytes()
+                for _ in range(2)]
+        maps = []
+        for hasher in ("gpu", "cpu"):
+            mgr, _ = make_store(4, replication=2)
+            sai = SAI(mgr, SAIConfig(hasher=hasher, **cfg), crystal=eng)
+            l0, s0 = md5.LAUNCHES.value, md5.SPAN_LAUNCHES.value
+            for d in data:
+                sai.write_async("/f", d).result(timeout=120)
+            sai.close()
+            if hasher == "gpu":                 # one launch a write
+                assert md5.SPAN_LAUNCHES.value - s0 == len(data)
+            assert md5.LAUNCHES.value == l0         # no row launch
+            maps.append([[(b.digest, b.length) for b in fv.blocks]
+                         for fv in mgr.files["/f"]])
+        assert maps[0] == maps[1]
+    finally:
+        eng.shutdown()
 
 
 def _plain_dropping(q, k, v, lo, hi):

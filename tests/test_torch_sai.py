@@ -158,19 +158,20 @@ def test_traced_write_span_tree(series, ca):
     ``sai/queue``, ``sai/chunk``, ``sai/hash`` and ``sai/store`` a write,
     each child inside its parent's interval and naming it, and the
     engine's queue and launch once a hash job and never for the window
-    hashes.  A small shard threshold splits each write's hash into
-    several packed groups."""
+    hashes.  However small the shard threshold, a write's hash is one
+    spans job over its whole image, whose sai/hash/pack span counts its
+    chunks and bytes (on one device the engine shards nothing)."""
     from repro_torch.obs import Trace
     eng = core.CrystalGPU(devices=[CPU], shard_min_bytes=8 << 10)
     mgr, _ = core.make_store(4, replication=2)
     sai = core.SAI(mgr, core.SAIConfig(ca=ca, **SMALL), crystal=eng)
     handles = []
-    submit = sai._submit_hash
+    submit = sai._submit_spans
 
-    def spy(chunks, trace=None):
-        handles.append(submit(chunks, trace))
+    def spy(data, ends, chunks, trace=None):
+        handles.append(submit(data, ends, chunks, trace))
         return handles[-1]
-    sai._submit_hash = spy
+    sai._submit_spans = spy
     traces = []
     try:
         for v, img in enumerate(series[:2]):
@@ -180,9 +181,10 @@ def test_traced_write_span_tree(series, ca):
     finally:
         sai.close()
         eng.shutdown()
+    assert len(handles) == len(traces) == 2
     for tr, handle, img in zip(traces, handles, series):
         jobs = len(handle._jobs)
-        assert jobs > 1
+        assert jobs == 1
         by = {}
         for s in tr.spans:
             by.setdefault(s.name, []).append(s)
@@ -206,8 +208,10 @@ def test_traced_write_span_tree(series, ca):
             (up,) = by[s.parent]
             assert up.t0 <= s.t0 <= s.t1 <= up.t1, (s.name, s.parent)
         packs = by["sai/hash/pack"]
-        assert sum(p.meta["rows"] for p in packs) == \
+        assert sum(p.meta["chunks"] for p in packs) == \
             by["sai/chunk"][0].meta["chunks"]
+        assert sum(p.meta["bytes"] for p in packs) == len(img)
+        assert all(p.meta["rows"] == p.meta["chunks"] for p in packs)
         if ca == "cdc":
             scan = by["sai/chunk/scan"][0].meta
             assert scan["chunks"] == by["sai/chunk"][0].meta["chunks"]
