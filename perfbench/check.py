@@ -28,6 +28,7 @@ LIMITS = {
 STEP = 1 << 22
 
 BlockMap = List[Tuple[bytes, int, Tuple[int, ...]]]
+Kept = Tuple[Tuple[int, ...], Tuple[bytes, ...]]     # ends, digests
 
 
 def ends_of(block_map: BlockMap) -> List[int]:
@@ -36,6 +37,13 @@ def ends_of(block_map: BlockMap) -> List[int]:
         pos += n
         out.append(pos)
     return out
+
+
+def kept(block_map: BlockMap) -> Kept:
+    """What ``writes`` needs of a block map: its chunk ends and its
+    digests, as tuples of plain values, which the collector stops
+    walking once it has seen them."""
+    return tuple(ends_of(block_map)), tuple(d for d, _, _ in block_map)
 
 
 def same_bytes(data: bytes, want: np.ndarray) -> bool:
@@ -53,7 +61,7 @@ def writes(done: Sequence[Dict], ref_bounds: Dict[int, List[int]],
            series: Sequence[np.ndarray]) -> Dict[str, int]:
     """``done``: one dict per timed write, with its ``version``, its
     ``counts`` (new blocks, dup blocks, new bytes, total bytes) or None
-    if it failed, and its ``block_map`` or None."""
+    if it failed, and its ``block_map`` as ``kept`` gives it, or None."""
     out = {"ops_failed": 0, "boundary_mismatch": 0, "digest_mismatch": 0,
            "dedup_mismatch": 0, "size_mismatch": 0}
     for w in done:
@@ -65,13 +73,13 @@ def writes(done: Sequence[Dict], ref_bounds: Dict[int, List[int]],
             out["dedup_mismatch"] += 1
         if w["counts"][3] != series[v].size:
             out["size_mismatch"] += 1
-        bm = w["block_map"] or []
-        if ends_of(bm) != ref_bounds[v]:
+        ends, digests = w["block_map"] or ((), ())
+        if list(ends) != ref_bounds[v]:
             out["boundary_mismatch"] += 1
             out["digest_mismatch"] += len(ref_digests[v])
             continue
         out["digest_mismatch"] += sum(
-            d != r for (d, _, _), r in zip(bm, ref_digests[v]))
+            d != r for d, r in zip(digests, ref_digests[v]))
     return out
 
 

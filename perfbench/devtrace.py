@@ -5,8 +5,10 @@ the program's spans.
 """
 from __future__ import annotations
 
+import bisect
 import json
 import time
+from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -18,16 +20,28 @@ Interval = Tuple[str, float, float]            # (name, t0, t1), seconds
 
 
 class DeviceTrace:
-    """Device operations of one traced window, in host seconds."""
+    """Device operations of one traced window, in host seconds.  The
+    window is ``[t0, t1]`` less its ``paused`` intervals (the harness's
+    own work with the clock stopped): what lies in them is left out of
+    the operations, the busy and the idle time alike."""
 
-    def __init__(self, ops: List[Interval], t0: float, t1: float):
+    def __init__(self, ops: List[Interval], t0: float, t1: float,
+                 paused: Sequence[Tuple[float, float]] = ()):
         self.t0, self.t1 = t0, t1
-        self.ops = [(n, max(a, t0), min(b, t1)) for n, a, b in ops
-                    if b > t0 and a < t1]
+        self.live: List[Tuple[float, float]] = []    # the window's parts
+        last = t0
+        for a, b in sorted(paused):
+            if a > last:
+                self.live.append((last, min(a, t1)))
+            last = max(last, b)
+        if t1 > last:
+            self.live.append((last, t1))
+        self.ops = [(n, max(a, s0), min(b, s1)) for n, a, b in ops
+                    for s0, s1 in self.live if b > s0 and a < s1]
 
     @property
     def window_s(self) -> float:
-        return self.t1 - self.t0
+        return sum(b - a for a, b in self.live)
 
     def busy(self) -> List[Tuple[float, float]]:
         """Union of the device operations' intervals, in order."""
@@ -44,13 +58,18 @@ class DeviceTrace:
         return sum(b - a for a, b in self.busy())
 
     def idle(self) -> List[Tuple[float, float]]:
-        gaps, last = [], self.t0
-        for a, b in self.busy():
-            if a > last:
-                gaps.append((last, a))
-            last = max(last, b)
-        if self.t1 > last:
-            gaps.append((last, self.t1))
+        """The window's parts that no device operation covers, in order."""
+        gaps, busy, i = [], self.busy(), 0
+        for s0, s1 in self.live:
+            last = s0
+            while i < len(busy) and busy[i][0] < s1:
+                a, b = busy[i]
+                if a > last:
+                    gaps.append((last, a))
+                last = max(last, b)
+                i += 1
+            if s1 > last:
+                gaps.append((last, s1))
         return gaps
 
     def seconds_by_name(self, needle: str) -> float:
@@ -65,14 +84,31 @@ class DeviceTrace:
 
     def idle_by_host(self, spans: Sequence[Interval],
                      k: int = 10) -> List[List]:
-        """Idle device time summed by what the host was in at each
-        gap's midpoint: the names of the open spans, or 'no span'."""
+        """Idle device time summed by what the host was in: each gap is
+        split where a span opens or closes, and each piece goes to the
+        names of the spans open over it, or to 'no span'."""
+        cuts = sorted({t for _, s0, s1 in spans for t in (s0, s1)})
+        # the names open over each piece between two cuts, by a sweep
+        edges: Dict[float, List] = {}
+        for n, s0, s1 in spans:
+            if s1 > s0:
+                edges.setdefault(s0, []).append((n, 1))
+                edges.setdefault(s1, []).append((n, -1))
+        open_: Counter = Counter()
+        labels = []
+        for t in cuts:
+            for n, d in edges.get(t, ()):
+                open_[n] += d
+            names = sorted(n for n, c in open_.items() if c > 0)
+            labels.append("+".join(names) if names else "no span")
         by: Dict[str, float] = {}
         for a, b in self.idle():
-            mid = (a + b) / 2
-            names = sorted({n for n, s0, s1 in spans if s0 <= mid < s1})
-            label = "+".join(names) if names else "no span"
-            by[label] = by.get(label, 0.0) + (b - a)
+            i = bisect.bisect_right(cuts, a) - 1
+            while a < b:
+                stop = min(cuts[i + 1], b) if i + 1 < len(cuts) else b
+                label = labels[i] if i >= 0 else "no span"
+                by[label] = by.get(label, 0.0) + (stop - a)
+                a, i = stop, i + 1
         return [[n, s] for n, s in sorted(by.items(),
                                           key=lambda x: -x[1])[:k]]
 
@@ -109,20 +145,23 @@ class Recorder:
         with torch.profiler.record_function(MARK):
             pass
 
-    def stop(self, path: str, t0: float, t1: float) -> Optional[DeviceTrace]:
+    def stop(self, path: str, t0: float, t1: float,
+             paused: Sequence[Tuple[float, float]] = ()
+             ) -> Optional[DeviceTrace]:
         """Stop, export the trace to ``path`` and read it back over the
-        window ``[t0, t1]`` (perf_counter seconds)."""
+        window ``[t0, t1]`` less ``paused`` (perf_counter seconds)."""
         self.prof.stop()
         self.prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)
         events = events.get("traceEvents", events) \
             if isinstance(events, dict) else events
-        return parse(events, self.mark_pc, t0, t1)
+        return parse(events, self.mark_pc, t0, t1, paused)
 
 
-def parse(events, mark_pc: float, t0: float,
-          t1: float) -> Optional[DeviceTrace]:
+def parse(events, mark_pc: float, t0: float, t1: float,
+          paused: Sequence[Tuple[float, float]] = ()
+          ) -> Optional[DeviceTrace]:
     """Device intervals of a Chrome trace, moved onto perf_counter
     seconds by the marker span recorded at ``mark_pc``."""
     mark = [e for e in events if e.get("name") == MARK and "ts" in e]
@@ -135,4 +174,4 @@ def parse(events, mark_pc: float, t0: float,
             a = float(e["ts"]) / 1e6 - offset
             ops.append((short_name(e.get("name", "?")), a,
                         a + float(e.get("dur", 0.0)) / 1e6))
-    return DeviceTrace(ops, t0, t1)
+    return DeviceTrace(ops, t0, t1, paused)

@@ -33,7 +33,7 @@ from perfbench import traffic as traffic_mod
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
-OUT = HERE / "out"                      # traces of --trace 1 runs
+OUT = HERE / "out"                      # device traces of the windows
 PATH = "/ckpt"
 # a minute past the close for an answer that comes late
 WAIT_S = 60.0
@@ -101,6 +101,9 @@ class Run:
     op: str                             # 'write' | 'read'
     t0: float = 0.0                     # first timed submission
     t1: float = 0.0                     # last completion
+    # (t0, t1) of each pause of the clock inside the window: the check
+    # of a lap's stores between laps
+    paused: List = field(default_factory=list)
     setup_s: float = 0.0
     ops_done: int = 0                   # operations that succeeded
     bytes_done: int = 0
@@ -111,6 +114,15 @@ class Run:
     device: Optional[devtrace.DeviceTrace] = None
     work: Dict = field(default_factory=dict)     # kernel -> (ops, bytes)
     gpu: Optional[Dict] = None          # sms, sm_clock_hz
+
+    @property
+    def paused_s(self) -> float:
+        return sum(b - a for a, b in self.paused)
+
+    @property
+    def window_s(self) -> float:
+        """The window's length less its pauses: what the program had."""
+        return self.t1 - self.t0 - self.paused_s
 
     def mean_span_ms(self, name: str) -> Optional[float]:
         ds = [t1 - t0 for n, t0, t1 in self.spans if n == name]
@@ -168,14 +180,23 @@ def block_map(mgr, version: int):
     return [(b.digest, b.length, tuple(b.nodes)) for b in fv.blocks]
 
 
+def tally(counts: Counter, blame: Optional[str], fn: Callable, *args):
+    """Add the counts ``fn(*args)`` returns; if it raises, the answer it
+    checked is wrong: add one to ``blame`` (None: the task's record says
+    so already)."""
+    try:
+        counts.update(fn(*args))
+    except Exception as e:                   # the answer is wrong
+        print(f"check {blame}: {e!r}", file=sys.stderr)
+        if blame is not None:
+            counts[blame] += 1
+
+
 class Checker:
-    """A thread that checks the window's answers while the window runs,
-    so that the submitting thread does none of it: each lap's stored
-    replicas once the lap is retired, every read's bytes as it returns.
-    Its queue is short, so a checker that falls behind holds the window
-    back rather than filling the host's memory.  A task returns counts
-    to add; one that raises adds one to its ``blame`` number (None: the
-    task's record says already that the answer is wrong)."""
+    """A thread that checks every read's bytes as it returns, while the
+    window runs, so that the submitting thread does none of it.  Its
+    queue is short, so a checker that falls behind holds the window back
+    rather than filling the host's memory.  A task is ``tally``'s."""
 
     def __init__(self, depth: int = 2):
         self.tasks: queue.Queue = queue.Queue(maxsize=depth)
@@ -193,12 +214,7 @@ class Checker:
             if task is None:
                 return
             blame, fn, args = task
-            try:
-                self.counts.update(fn(*args))
-            except Exception as e:               # the answer is wrong
-                print(f"check {blame}: {e!r}", file=sys.stderr)
-                if blame is not None:
-                    self.counts[blame] += 1
+            tally(self.counts, blame, fn, *args)
 
     def close(self) -> Counter:
         """Wait for every task; the counts."""
@@ -227,18 +243,18 @@ class Lap:
     def __init__(self, index: int, prog: Program):
         self.index = index
         self.sai, self.mgr, self.nodes = prog.store()
-        self.open = 0
         self.records: List[Dict] = []
 
 
 def retire(lap: Lap, series, replication: int) -> Dict[str, int]:
-    """Once a lap's writes are done: its block maps into its records,
-    its SAI closed, every replica its maps name compared with the image,
-    and the store dropped."""
+    """Once a lap's writes are done: what the write check needs of its
+    block maps into its records (``check.kept``: no collection in the
+    rest of the window walks them), its SAI closed, every replica its
+    maps name compared with the image, and the store dropped."""
     maps = {v: block_map(lap.mgr, v) for v in range(len(lap.records))}
     for rec in lap.records:
-        if rec["counts"] is not None:
-            rec["block_map"] = maps[rec["version"]]
+        if rec["counts"] is not None and maps[rec["version"]] is not None:
+            rec["block_map"] = check.kept(maps[rec["version"]])
     lap.sai.close()
     nodes = lap.nodes
     faults = check.replicas(
@@ -249,56 +265,81 @@ def retire(lap: Lap, series, replication: int) -> Dict[str, int]:
 
 
 def closed_loop(run: Run, seconds: float, in_flight: int,
-                submit: Callable, finish: Callable):
-    """Keep ``in_flight`` operations going until ``seconds`` have passed,
-    then wait for the last: ``submit()`` starts one, ``finish(op,
-    timeout)`` waits for it.  The window runs from the first submission
-    to the last completion."""
+                submit: Callable, finish: Callable,
+                between: Optional[Callable] = None):
+    """Keep ``in_flight`` operations going until ``seconds`` of the
+    window have passed, then wait for the last: ``submit()`` starts one,
+    ``finish(op, timeout)`` waits for it.  The window runs from the first
+    submission to the last completion.  ``between()``, asked before each
+    submission, returns work to do with the clock stopped, or None: the
+    operations in flight are completed first, then the work runs and its
+    interval goes into ``run.paused`` and onto the deadline, so the
+    program still has ``seconds``.  Past the deadline it is left undone."""
     pending = deque()
     run.t0 = time.perf_counter()
     deadline = run.t0 + seconds
     run.t1 = run.t0
-    while True:
-        while len(pending) < in_flight and time.perf_counter() < deadline:
-            pending.append(submit())
-        if not pending:
-            return
+
+    def complete():
         finish(pending.popleft(),
                max(deadline - time.perf_counter(), 0) + WAIT_S)
         run.t1 = time.perf_counter()
 
+    while True:
+        while len(pending) < in_flight and time.perf_counter() < deadline:
+            work = between() if between is not None else None
+            if work is not None:
+                while pending:
+                    complete()
+                if time.perf_counter() >= deadline:
+                    break
+                stop = time.perf_counter()
+                work()
+                start = time.perf_counter()
+                run.paused.append((stop, start))
+                deadline += start - stop
+            pending.append(submit())
+        if not pending:
+            return
+        complete()
 
-def timed_writes(prog, series, traffic, seconds, trace, run, checker,
+
+def timed_writes(prog, series, traffic, seconds, trace, run,
                  replication: int):
+    """The window's writes, each lap into a fresh store.  Each lap is
+    checked (``retire``) between laps with the clock stopped, the last
+    once the window has closed: the returned ``close_check()`` does that
+    and gives the counts."""
     versions = traffic_mod.op_versions(traffic, 0)
     done: List[Dict] = []
     traces: List = []
     ids = itertools.count()
-    state = {"lap": None, "laps": 0}
+    found: Counter = Counter()
+    state = {"lap": None, "laps": 0, "next": next(versions)}
 
-    def hand_over(lap: Lap):
-        """Retire a lap once its writes are done and the next has begun."""
-        if lap.open == 0 and lap is not state["lap"]:
-            checker.put("replica_faults", retire, lap, series, replication)
+    def check_lap():
+        tally(found, "replica_faults", retire, state["lap"], series,
+              replication)
+        state["lap"] = None
+
+    def between():
+        """Before a lap's first write, the check of the lap before it."""
+        return check_lap if state["next"] == 0 and state["lap"] else None
 
     def submit():
-        v = next(versions)
+        v, state["next"] = state["next"], next(versions)
         if v == 0:
-            last = state["lap"]
             state["lap"] = Lap(state["laps"], prog)
             state["laps"] += 1
-            if last is not None:
-                hand_over(last)
         lap = state["lap"]
         tr = new_trace(next(ids), "write") if trace else None
         rec = {"lap": lap.index, "version": v, "counts": None,
                "block_map": None}
         lap.records.append(rec)
-        lap.open += 1
-        return lap, rec, lap.sai.write_async(PATH, series[v], trace=tr), tr
+        return rec, lap.sai.write_async(PATH, series[v], trace=tr), tr
 
     def finish(op, timeout):
-        lap, rec, fut, tr = op
+        rec, fut, tr = op
         try:
             st = fut.result(timeout=timeout)
             rec["counts"] = (st.new_blocks, st.dup_blocks, st.new_bytes,
@@ -309,14 +350,15 @@ def timed_writes(prog, series, traffic, seconds, trace, run, checker,
             rec["error"] = repr(e)
         done.append(rec)
         traces.extend([tr] if tr is not None else [])
-        lap.open -= 1
-        hand_over(lap)
 
-    closed_loop(run, seconds, traffic["in_flight"], submit, finish)
-    if state["lap"] is not None:
-        checker.put("replica_faults", retire, state["lap"], series,
-                    replication)
-    return done, traces
+    def close_check() -> Counter:
+        if state["lap"] is not None:
+            check_lap()
+        return found
+
+    closed_loop(run, seconds, traffic["in_flight"], submit, finish,
+                between)
+    return done, traces, close_check
 
 
 def compare_read(rec: Dict, data: bytes, image: np.ndarray):
@@ -424,8 +466,12 @@ def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
     # walks it again
     gc.collect()
     gc.freeze()
-    checker = Checker()
-    recorder = devtrace.Recorder() if trace else None
+    # the card is profiled in a traced window, and in any window on a
+    # card whose metrics read the device trace
+    profile = trace or cuda and any(
+        m["source"] == "device_trace"
+        for m in metrics_of(manifest, workload, False))
+    recorder = devtrace.Recorder() if profile else None
     if recorder is not None:
         recorder.start()
     run.counters["before"] = prog.stats()
@@ -434,24 +480,31 @@ def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
 
     replication = config["store"]["replication"]
     if traffic["op"] == "write":
-        done, traces = timed_writes(prog, series, prog_traffic, seconds,
-                                    trace, run, checker, replication)
+        done, traces, close_check = timed_writes(
+            prog, series, prog_traffic, seconds, trace, run, replication)
     else:
+        checker = Checker()
         done, traces = timed_reads(store[0], series, prog_traffic, seconds,
                                    trace, run, seed, checker)
+        close_check = checker.close
     run.counters["after"] = prog.stats()
     if recorder is not None:
         OUT.mkdir(parents=True, exist_ok=True)
-        run.device = recorder.stop(
-            str(OUT / f"trace-{workload}-{seed}.json"), run.t0, run.t1)
+        path = OUT / (f"trace-{workload}-{seed}.json" if trace
+                      else f"window-{workload}.json")
+        run.device = recorder.stop(str(path), run.t0, run.t1, run.paused)
+        if not trace:                   # read: only a traced run keeps it
+            path.unlink()
     spans = [s for tr in traces for s in tr.spans]
     run.spans = [(s.name, s.t0, s.t1) for s in spans]
     run.span_records = [(s.name, s.t0, s.t1, s.parent, dict(s.meta))
                         for s in spans]
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     t = time.perf_counter()
-    found = checker.close()
+    found = close_check()
     parts["check_wait_s"] = time.perf_counter() - t
+    parts["check_pause_s"] = run.paused_s
+    parts["window_s"] = run.window_s
     if store is not None:
         store[0].close()
     prog.close()
@@ -491,7 +544,7 @@ def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
               "failed": numbers["ops_failed"],
               "metrics": metrics,
               "device": {"memory_peak_bytes": int(peak)}}
-    if run.device is not None:
+    if trace and run.device is not None:
         result["device"]["busy_s"] = run.device.busy_s
         result["device"]["window_s"] = run.device.window_s
         result["breakdown"] = {

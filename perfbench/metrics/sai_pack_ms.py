@@ -1,5 +1,6 @@
-"""``sai/hash/pack`` in ms per write: every ``pack_blocks`` call of a
-write's hash submission (chunks copied into zero-padded rows)."""
+"""``sai/hash/pack`` in ms per write: the preparation of a write's one
+spans job (its chunks' ends over its image, no rows packed), not
+``pack_blocks``."""
 from perfbench.metrics._per_write import span_ms_per_write
 
 

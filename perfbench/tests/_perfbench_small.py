@@ -28,13 +28,16 @@ SMALL = {"config": {"sai": {"avg_chunk": 2048, "min_chunk": 512,
 
 
 def manifest():
-    """BENCHMARK.json with the verified-read cell and its metrics, which
-    ``restore_cell.json`` keeps until the cell's runs are steady enough
-    for a bound: the harness's read path is tested through it."""
+    """BENCHMARK.json with the entries kept out of it until their runs
+    are steady enough for a bound, so that the harness's paths and their
+    readers are tested through them: the verified-read cell and its
+    metrics (``restore_cell.json``), and the write cells' host-clock rate
+    and host stages (``host_path.json``)."""
     m = harness.load_manifest()
-    with open(Path(__file__).with_name("restore_cell.json")) as f:
-        for key, entries in json.load(f).items():
-            m[key] = m[key] + entries
+    for kept in ("restore_cell.json", "host_path.json"):
+        with open(Path(__file__).with_name(kept)) as f:
+            for key, entries in json.load(f).items():
+                m[key] = m[key] + entries
     return m
 
 

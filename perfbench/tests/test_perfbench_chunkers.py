@@ -151,7 +151,7 @@ def test_traced_run_keeps_span_meta_parents_and_counters(monkeypatch,
         by.setdefault(name, []).append((parent, meta))
     assert by["sai/hash/pack"]
     for parent, meta in by["sai/hash/pack"]:
-        assert parent == "sai/hash" and meta["rows"] > 0
+        assert parent == "sai/hash" and meta["chunks"] > 0
     if workload == WRITE_CDC:
         assert by["sai/chunk/scan"]
         for parent, meta in by["sai/chunk/scan"]:

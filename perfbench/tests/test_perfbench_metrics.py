@@ -67,20 +67,88 @@ def test_device_trace_on_the_host_clock():
 def test_idle_by_host_span():
     run = synthetic_run()
     gaps = dict(run.device.idle_by_host(run.spans))
-    # idle 100.5-101.0 (in sai/chunk), 101.2-102.0 (mid 101.6: none),
-    # 102.15-104.0 (mid 103.075: none)
-    assert gaps["sai/chunk"] == pytest.approx(0.5)
-    assert gaps["no span"] == pytest.approx(0.8 + 1.85)
+    # idle 100.5-101.0 (in sai/chunk), 101.2-102.0 (sai/hash to 101.5,
+    # then none), 102.15-104.0 (sai/chunk to 102.2, then none): each gap
+    # split where a span closes, not charged whole to its midpoint's
+    assert gaps["sai/chunk"] == pytest.approx(0.5 + 0.05)
+    assert gaps["sai/hash"] == pytest.approx(0.3)
+    assert gaps["no span"] == pytest.approx(0.5 + 1.8)
     assert sum(gaps.values()) == pytest.approx(4.0 - 0.85)
+
+
+def test_idle_gap_split_over_nested_and_overlapping_spans():
+    dev = devtrace.DeviceTrace([("k", 0.0, 1.0), ("k", 9.0, 10.0)],
+                               0.0, 10.0)
+    spans = [("outer", 2.0, 6.0), ("inner", 3.0, 4.0),
+             ("other", 5.0, 7.5), ("before", -1.0, 1.5)]
+    gaps = dict(dev.idle_by_host(spans))
+    # the one gap 1-9: before 1-1.5, none 1.5-2, outer 2-3 and 4-5,
+    # outer+inner 3-4, other+outer 5-6, other 6-7.5, none 7.5-9
+    assert gaps == pytest.approx({
+        "before": 0.5, "no span": 0.5 + 1.5, "outer": 2.0,
+        "inner+outer": 1.0, "other+outer": 1.0, "other": 1.5})
+    assert dict(dev.idle_by_host([])) == pytest.approx({"no span": 8.0})
+
+
+def test_device_trace_leaves_the_pauses_out():
+    ops = [("k", 1.0, 2.0),             # before the pause
+           ("k", 2.5, 3.5),             # runs into it: 2.5-3.0 counts
+           ("m", 3.2, 3.8),             # inside it: left out
+           ("k", 5.5, 6.0)]             # after it
+    dev = devtrace.DeviceTrace(ops, 0.0, 8.0, paused=[(3.0, 5.0)])
+    assert dev.window_s == pytest.approx(6.0)
+    assert dev.busy() == [(1.0, 2.0), (2.5, 3.0), (5.5, 6.0)]
+    assert dev.busy_s == pytest.approx(2.0)
+    assert dev.idle() == [(0.0, 1.0), (2.0, 2.5), (5.0, 5.5), (6.0, 8.0)]
+    assert sum(b - a for a, b in dev.idle()) == pytest.approx(
+        dev.window_s - dev.busy_s)
+    assert dev.seconds_by_name("m") == 0
+    assert dev.seconds_by_name("k") == pytest.approx(2.0)
+    gaps = dict(dev.idle_by_host([("sai/chunk", 0.0, 8.0)]))
+    assert gaps == pytest.approx({"sai/chunk": 4.0})
+    # the same through the trace's export, and the idle share's reader
+    run = synthetic_run()
+    events = trace_events(5e6, [("md5_direct_kernel(int)", "kernel",
+                                 5e6 + 1e6, 2e5)])
+    run.device = devtrace.parse(events, 100.0, 100.5, 104.5,
+                                paused=[(101.1, 103.1)])
+    assert run.device.window_s == pytest.approx(2.0)
+    assert run.device.busy_s == pytest.approx(0.1)
+    assert value("device_idle_pct.write", run) == pytest.approx(95.0)
 
 
 def test_end_to_end_readers():
     run = synthetic_run()
     assert value("write_MBps", run) == pytest.approx(1.0)
+    # the harness's check between laps, with the clock stopped
+    run.paused = [(101.0, 101.5), (103.0, 104.0)]
+    assert run.window_s == pytest.approx(2.5)
+    assert value("write_MBps", run) == pytest.approx(1.6)
+    run.paused = []
     assert value("read_MBps", run) is None
     assert value("setup_s", run) == 3.0
     run.op = "read"
     assert value("read_MBps", run) == pytest.approx(1.0)
+
+
+def test_card_time_per_gb():
+    run = synthetic_run()
+    # busy 101.0-101.2, 102.0-102.15 (a kernel and a copy overlapping)
+    # and 104.0-104.5 (cut at the window's end): 0.85 s over 0.004 GB
+    assert value("card_ms_per_GB", run) == pytest.approx(850.0 / 0.004)
+    # a pause leaves its device time out, as the window does
+    run.device = devtrace.parse(
+        trace_events(5e6, [("md5_direct_kernel(int)", "kernel",
+                            5e6 + 1e6, 2e5),
+                           ("md5_direct_kernel(int)", "kernel",
+                            5e6 + 2e6, 2e5)]),
+        100.0, 100.5, 104.5, paused=[(101.9, 102.5)])
+    assert value("card_ms_per_GB", run) == pytest.approx(200.0 / 0.004)
+    # no device operation (no card), or nothing moved: left out
+    run.device = devtrace.DeviceTrace([], 100.5, 104.5)
+    assert value("card_ms_per_GB", run) is None
+    run.device, run.bytes_done = synthetic_run().device, 0
+    assert value("card_ms_per_GB", run) is None
 
 
 def test_span_and_counter_readers():
